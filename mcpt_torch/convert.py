@@ -1,0 +1,76 @@
+"""State conversion between ``mcpt`` (JAX) and ``mcpt_torch``.
+
+``mcpt``'s state is handed over as numpy arrays (``np.asarray`` of each JAX
+field), so this module needs neither JAX nor ``mcpt``.  Field names are the
+same on both sides: ``MegaScene`` tables (``tri, cbox, matt, lit`` plus the
+scalar fields), ``Camera`` and ``Framebuffer``.  The CLI checkpoint is the
+``.ckpt.npz`` that ``tools/render.py`` writes — ``{sum, count, done}`` — so a
+render checkpointed by either CLI resumes under the other.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from mcpt_torch.kernels.megakernel import MegaScene
+from mcpt_torch.types import Camera, Framebuffer
+
+_SCALAR_FIELDS = {"n_tris": int, "n_mats": int, "n_lights": int,
+                  "eps": float, "total_light_area": float}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def megascene_from_numpy(fields: Mapping, device) -> MegaScene:
+    """``mcpt.pallas.megakernel.MegaScene`` fields (arrays and scalars) →
+    the port's ``MegaScene`` on ``device``."""
+    return MegaScene(**{
+        k: (_SCALAR_FIELDS[k](fields[k]) if k in _SCALAR_FIELDS
+            else _tensor(np.asarray(fields[k], np.float32), device))
+        for k in MegaScene._fields
+    })
+
+
+def megascene_to_numpy(mega: MegaScene) -> dict:
+    return {k: (v if k in _SCALAR_FIELDS else _numpy(v))
+            for k, v in mega._asdict().items()}
+
+
+def camera_from_numpy(fields: Mapping, device) -> Camera:
+    return Camera(**{k: _tensor(np.asarray(fields[k], np.float32), device)
+                     for k in Camera._fields})
+
+
+def camera_to_numpy(cam: Camera) -> dict:
+    return {k: _numpy(v) for k, v in cam._asdict().items()}
+
+
+def framebuffer_from_numpy(sum_, count, device) -> Framebuffer:
+    return Framebuffer(sum=_tensor(np.asarray(sum_, np.float32), device),
+                       count=_tensor(np.asarray(count, np.float32), device))
+
+
+def framebuffer_to_numpy(fb: Framebuffer) -> dict:
+    return {"sum": _numpy(fb.sum), "count": _numpy(fb.count)}
+
+
+def load_checkpoint(path: str, device) -> tuple[Framebuffer, int]:
+    """A ``{sum, count, done}`` checkpoint → (framebuffer, samples done)."""
+    with np.load(path) as z:
+        return (framebuffer_from_numpy(z["sum"], z["count"], device),
+                int(z["done"]))
+
+
+def save_checkpoint(path: str, fb: Framebuffer, done: int) -> None:
+    """Write the checkpoint in ``tools/render.py``'s format."""
+    np.savez(path, **framebuffer_to_numpy(fb), done=done)
