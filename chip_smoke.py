@@ -11,11 +11,26 @@ oracles, drives the render CLI's main path through the kernel, and times one
 render step.  Any failed phase exits nonzero.  Without a CUDA device it exits
 nonzero at once: nothing here falls back to the CPU.
 
-Phases: 1 device, 2 build, 3 kernel vs plain version on small views of each
-tier, 4 oracles, 5 main path (``mcpt_torch.render_cli`` on configs 0, 2 and
-6), 6 kernel vs plain version at the main path's own render steps (configs 0
-and 6, taken from ``config.json``), timed.  The last two lines of standard
-output are the kernel report and the result, each one JSON object.
+Phases, dense megakernel (kernel 1): 1 device, 2 build (both CUDA sources,
+one nvcc each, in parallel; the host treelet library with g++), 3 kernel vs
+plain version on small views of
+each tier, 4 oracles, 5 main path (``mcpt_torch.render_cli`` on configs 0, 2
+and 6), 6 kernel vs plain version at the main path's own render steps
+(configs 0 and 6, taken from ``config.json``), timed.
+
+Phases, hybrid fused bounce (kernel 2): 7 build report (ptxas's registers,
+stack and spill of the kernel), 8 whole ``render_hybrid`` through the
+kernel vs through the plain version on boxfield(60) and a small diningroom
+view, 9 oracles (hybrid vs megakernel on the same streams; the diningroom
+golden), 10 main path (``render_cli`` on configs 7 and 8 at their own size,
+16 spp, and config 9 at 4 spp), 11 one bounce at config 8's own pool
+(3,686,400 rays, depths 0 and 1), kernel vs plain version, timed.
+
+``python3 chip_smoke.py --crossover`` instead times the two engines through
+their kernels on boxfield(n) at 724-6004 triangles (the ``auto`` engine's
+crossover); ``--fmad-ab`` the dense kernel built with ``-fmad=false`` and
+``-fmad=true``.  The last two lines of standard output are the kernel report
+and the result, each one JSON object.
 """
 
 from __future__ import annotations
@@ -161,6 +176,10 @@ def run() -> dict:
     print(f"built {_build.library_path().name} from mcpt_torch/csrc in "
           f"{time.perf_counter() - t0:.2f} s")
     print(_build.library_path().with_suffix(".log").read_text().strip())
+    t0 = time.perf_counter()
+    _build.load_host()
+    print(f"built {_build.host_library_path().name} (g++) from "
+          f"mcpt_torch/csrc/host in {time.perf_counter() - t0:.2f} s")
 
     phase(3, "kernel vs plain version (spp 4, NEE+MIS+RR)")
     max_abs = 0.0
@@ -292,7 +311,277 @@ def run() -> dict:
     mk.LAUNCHES = saved  # comparison launches are not main-path launches
     report["max_abs_err"] = max_abs
     report["card"] = card
+    report["hybrid"] = run_hybrid(card)
     return report
+
+
+def hybrid_setup(name, width, height, device, **builder_kw):
+    from mcpt_torch import scenes
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+    from mcpt_torch.render.camera import make_camera
+    from mcpt_torch.scene import build_scene
+
+    loaded, camcfg = getattr(scenes, name)(**builder_kw)
+    camcfg = dataclasses.replace(camcfg, resolution=(width, height))
+    scene, lights = build_scene(loaded, device=device)
+    cam = make_camera(camcfg, device=device)
+    return scene, lights, cmk.build_cluster_megascene(scene, lights), cam
+
+
+def config_hybrid_step(configid, device):
+    """The hybrid engine's first render step of a config.json entry as
+    ``render_cli`` runs it on CUDA: (cms, camera, width, height,
+    render_hybrid keyword arguments with the pilot's caps)."""
+    from mcpt_torch.config import load_config
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+    from mcpt_torch.render import integrator as integ
+    from mcpt_torch.render.camera import make_camera
+    from mcpt_torch.render_cli import build_from_config
+
+    cfg = load_config(os.path.join(ROOT, "config.json"), configid)
+    scene, lights, camcfg = build_from_config(cfg, device)
+    w = cfg.width or camcfg.resolution[0]
+    h = cfg.height or camcfg.resolution[1]
+    cam = make_camera(dataclasses.replace(camcfg, resolution=(w, h)),
+                      device=device)
+    cms = cmk.build_cluster_megascene(scene, lights)
+    opts = integ.RenderOptions(
+        max_depth=cfg.maxdepth or 16, nee=cfg.integrator.nee,
+        mis=cfg.integrator.mis,
+        russian_roulette=cfg.integrator.russian_roulette,
+        rr_start_depth=cfg.integrator.rr_start_depth)
+    kw = dict(spp=max(1, cfg.spp_per_step), seed=cfg.seed,
+              max_depth=opts.max_depth, rr=opts.russian_roulette,
+              rr_start=opts.rr_start_depth, nee=opts.nee, mis=opts.mis,
+              clamp=cfg.integrator.clamp,
+              compact=integ.measure_schedule(cms, cam, opts))
+    return cms, cam, w, h, kw
+
+
+def run_hybrid(card) -> dict:
+    """Phases 7-11: the hybrid engine and its fused-bounce kernel."""
+    import numpy as np
+    import torch
+
+    from mcpt_torch import render_cli
+    from mcpt_torch.io import image as im
+    from mcpt_torch.kernels import _build
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+    from mcpt_torch.kernels import megakernel as mk
+
+    dev = torch.device("cuda")
+    out = {}
+
+    phase(7, "build report (hybrid): fused-bounce kernel")
+    # both libraries were built in phase 2 (each CUDA source by its own nvcc)
+    log = _build.library_path().with_suffix(".log").read_text()
+    fused = log[log.index("fused_bounce_kernel"):].splitlines()[:4]
+    print("fused_bounce_kernel ptxas: " + " | ".join(x.strip() for x in fused))
+
+    phase(8, "render_hybrid through the kernel vs through the plain version "
+             "(spp 2, depth 4, NEE+MIS+RR)")
+    max_abs = 0.0
+    for name, w, h, kw in (("boxfield", 64, 48, {"n_boxes": 60}),
+                           ("diningroom", 64, 36, {})):
+        _, _, cms, cam = hybrid_setup(name, w, h, dev, **kw)
+        print(f"{name} {w}x{h}: {cms.tri16.shape[0]} tri rows in "
+              f"{cms.n_clusters} clusters, {cms.wnodes.shape[0]} wide nodes, "
+              f"{cms.n_lights} lights")
+        for key_mode, compact in (("cell", None), ("dir6", None),
+                                  ("cell", (0.4, 0.25, 0.2)),
+                                  ("dir6", (0.4, 0.25, 0.2))):
+            args = dict(spp=2, seed=13, max_depth=4, rr=True, rr_start=1,
+                        nee=True, mis=True, key_mode=key_mode,
+                        compact=compact)
+            a, sa = cmk.render_hybrid(cms, cam, w, h, **args)
+            torch.cuda.synchronize()
+            b, sb = cmk.render_hybrid_reference(cms, cam, w, h, **args)
+            max_abs = max(max_abs, check_parity(
+                f"{name} {key_mode} compact={compact}", a.cpu().numpy(),
+                float(sa), b.cpu().numpy(), float(sb), w * h))
+
+    phase(9, "oracles on the hybrid")
+    scene, lights, cms, cam = hybrid_setup("boxfield", 64, 48, dev,
+                                           n_boxes=60)
+    args = dict(spp=4, seed=21, max_depth=6, rr=True, rr_start=2, nee=True,
+                mis=True)
+    a, sa = cmk.render_hybrid(cms, cam, 64, 48, compact=None, **args)
+    b, sb = mk.render_mega(mk.build_megascene(scene, lights), cam, 64, 48,
+                           schedule="batch", **args)
+    check_parity("boxfield(60) hybrid vs megakernel (batch), same streams",
+                 a.cpu().numpy(), float(sa), b.cpu().numpy(), float(sb),
+                 64 * 48)
+    golden = im.read_exr_rgb(os.path.join(ROOT, "tests", "goldens",
+                                          "diningroom.exr"))[::-1]
+    _, _, cms, cam = hybrid_setup("diningroom", 160, 90, dev)
+    rad, _ = cmk.render_hybrid(cms, cam, 160, 90, spp=16, seed=5,
+                               max_depth=8, nee=True, mis=True)
+    img = rad.cpu().numpy().reshape(90, 160, 3) / 16.0
+    err = rel_rmse(img.astype(np.float64), golden.astype(np.float64))
+    print(f"golden diningroom 160x90 d8 16 spp: rel-RMSE {err:.4f} "
+          "(gate 0.35)")
+    if not err < 0.35:
+        raise AssertionError(f"golden gate diningroom: {err} >= 0.35")
+
+    phase(10, "main path: mcpt_torch.render_cli on configs 7, 8 and 9")
+    runs = [(7, ["--spp", "16"], 4), (8, ["--spp", "16"], 4),
+            (9, ["--spp", "4"], 1)]
+    cmk.LAUNCHES = mk.LAUNCHES = 0
+    expected = 0
+    main_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cid, extra, n_steps in runs:
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = render_cli.main(["--config", os.path.join(
+                    ROOT, "config.json"), "--configid", str(cid), "--out",
+                    tmp, "--device", "cuda", *extra])
+            wall = time.perf_counter() - t0
+            text = buf.getvalue()
+            print(text.strip())
+            if rc != 0 or "engine: hybrid" not in text:
+                raise AssertionError(f"config {cid}: render_cli returned "
+                                     f"{rc} or took another engine")
+            # 8 bounces per render step, and 8 for the pilot's own render
+            expected += 8 * (n_steps + 1)
+            stem = re.search(r"wrote (\S+)\.hdr", text).group(1)
+            img = im.read_exr_rgb(os.path.join(tmp, f"{stem}.exr"))
+            last = re.findall(r"\|\s*([\d.]+) spp/s \|\s*([\d.]+) Mrays/s",
+                              text)[-1]
+            build_s = float(re.search(r"scene build: ([\d.]+) s",
+                                      text).group(1))
+            caps = re.search(r"pilot caps (\([^)]*\)|None)", text).group(1)
+            key = re.search(r"key mode (\w+)", text).group(1)
+            main_path[f"config {cid}"] = dict(
+                spp_per_s=float(last[0]), mrays=float(last[1]), wall_s=wall,
+                mean=float(img.mean()), build_s=build_s, caps=caps,
+                key_mode=key)
+            print(f"config {cid} ({stem}): scene build {build_s:.2f} s, "
+                  f"pilot caps {caps}, key mode {key}, {last[1]} Mrays/s, "
+                  f"{last[0]} spp/s, wall {wall:.2f} s, image mean "
+                  f"{img.mean():.4f} | {card}")
+            if not np.isfinite(img).all() or not img.mean() > 0.0:
+                raise AssertionError(f"{stem}: non-finite or black image")
+            if "nan" in text.lower() or "inf " in text.lower():
+                raise AssertionError(f"{stem}: non-finite segment count")
+    launches = cmk.LAUNCHES
+    print(f"fused-bounce launches in the main path: {launches} (8 bounces × "
+          f"(render steps + one pilot render) = {expected}); dense-kernel "
+          f"launches: {mk.LAUNCHES}")
+    if launches != expected or mk.LAUNCHES != 0:
+        raise AssertionError("the CLI did not run every bounce through the "
+                             "fused-bounce kernel")
+    out["launches"] = launches
+    out["main_path"] = main_path
+
+    phase(11, "one bounce at config 8's own pool: kernel vs plain version, "
+              "timed (CUDA events)")
+    saved = cmk.LAUNCHES
+    cms, cam, w, h, kw = config_hybrid_step(8, dev)
+    n_rays = w * h * kw["spp"]
+    n_pool = -(-n_rays // cmk.BLKT) * cmk.BLKT
+    state, rid = cmk.camera_pool(cms, cam, w, h, kw["spp"], kw["seed"],
+                                 n_pool)
+    key_mode = cmk.resolve_key_mode("auto", kw["compact"])
+    bkw = {k: kw[k] for k in ("max_depth", "rr", "rr_start", "nee", "mis",
+                              "clamp")}
+    times = {}
+    for depth in (0, 1):
+        def timed(fn):
+            x = state.clone()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            segs = fn(cms, x, rid, kw["seed"], depth, **bkw)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end), x, segs
+
+        plain_a, b, sb = timed(cmk.fused_bounce_reference)
+        kern_a, _, _ = timed(cmk.fused_bounce)
+        kern_b, a, sa = timed(cmk.fused_bounce)
+        plain_b, _, _ = timed(cmk.fused_bounce_reference)
+        live = a[cmk.ALIVE] > 0
+        same = (torch.equal(a[9:13], b[9:13]) and torch.equal(sa, sb)
+                and torch.equal(a[:, live], b[:, live]))
+        diff = float((a[9:12] - b[9:12]).abs().max())
+        max_abs = max(max_abs, diff)
+        ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+        seg = float(sa.double().sum())
+        print(f"  depth {depth}: {n_rays} rays in a {n_pool}-lane pool, "
+              f"{int(live.sum())} live after; bit-equal {same} (max |a-b| "
+              f"radiance {diff:.3e}); kernel {kern_a:.3f} / {kern_b:.3f} ms, "
+              f"plain {plain_a:.1f} / {plain_b:.1f} ms; {seg:.0f} segments:"
+              f" {seg / ms / 1e3:.1f} Mrays/s kernel | {card}")
+        if not same:
+            raise AssertionError(f"depth {depth}: kernel disagrees with the "
+                                 "plain version at the main path's pool")
+        times[depth] = (ms, plain_ms)
+        # the next depth starts from the kernel's output, re-sorted as the
+        # pipeline sorts it
+        key = cmk._hybrid_sort_key(*a[:6], a[cmk.ALIVE], cms.bb_lo,
+                                   cms.bb_inv_ext, key_mode)
+        order = torch.sort(key, stable=True).indices
+        state, rid = a.index_select(1, order), rid[order]
+    cmk.LAUNCHES = saved  # comparison launches are not main-path launches
+    out["ms"], out["plain_ms"] = times[0]
+    out["max_abs_err"] = max_abs
+    return out
+
+
+def crossover(spp: int = 16, step: int = 4) -> None:
+    """``--crossover``: the dense megakernel against the hybrid, each through
+    its kernel, on boxfield(n) at 724, 1204, 2404 and 6004 triangles
+    (``mcpt``'s sweep, tools/render.py:145-149) and at 1564, 1804 and 2044
+    between the two sizes where the engines swap: 1280x720, depth 8,
+    NEE+MIS+RR, ``spp`` samples in steps of ``step`` as the CLI renders
+    config 7 (the hybrid with its pilot's caps).  Prints Mrays/s and spp/s
+    of each engine."""
+    import torch
+
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+    from mcpt_torch.kernels import megakernel as mk
+    from mcpt_torch.render import integrator as integ
+
+    dev = torch.device("cuda")
+    card = smi()
+    print(f"nvidia-smi: {card}")
+    w, h = 1280, 720
+    opts = integ.RenderOptions(max_depth=8, nee=True, mis=True,
+                               russian_roulette=True)
+    kw = dict(max_depth=8, rr=True, rr_start=3, nee=True, mis=True)
+    for n_boxes in (60, 100, 130, 150, 170, 200, 500):
+        scene, lights, cms, cam = hybrid_setup("boxfield", w, h, dev,
+                                               n_boxes=n_boxes)
+        mega = mk.build_megascene(scene, lights)
+        compact = integ.measure_schedule(cms, cam, opts)
+        engines = {
+            "mega": lambda s, seed: mk.render_mega(mega, cam, w, h, spp=s,
+                                                   seed=seed, **kw),
+            "hybrid": lambda s, seed: cmk.render_hybrid(
+                cms, cam, w, h, spp=s, seed=seed, compact=compact, **kw),
+        }
+        res = {}
+        for name in ("mega", "hybrid", "hybrid", "mega"):
+            engines[name](step, 1)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            segs = 0.0
+            for i in range(spp // step):
+                _, sg = engines[name](step, 1 + i * 7919)
+                segs += float(sg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            res.setdefault(name, []).append((segs / dt / 1e6, spp / dt))
+            print(f"  boxfield({n_boxes}) {scene.n_tris} tris {name}: "
+                  f"{segs / dt / 1e6:.2f} Mrays/s, {spp / dt:.2f} spp/s, "
+                  f"{segs:.0f} segments in {dt * 1e3:.1f} ms | {card}")
+        m = sum(r[0] for r in res["mega"]) / 2
+        hy = sum(r[0] for r in res["hybrid"]) / 2
+        print(f"boxfield({n_boxes}) {scene.n_tris} tris: mega {m:.2f}, "
+              f"hybrid {hy:.2f} Mrays/s (pilot caps {compact}) -> "
+              f"{'mega' if m >= hy else 'hybrid'} | {card}")
 
 
 def fmad_ab(reps: int = 10) -> None:
@@ -369,6 +658,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--fmad-ab", action="store_true",
                     help="only measure -fmad=false against -fmad=true")
+    ap.add_argument("--crossover", action="store_true",
+                    help="only time the megakernel against the hybrid on "
+                         "boxfield(n), 724-6004 tris")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -383,6 +675,9 @@ def main(argv=None) -> int:
     try:
         if args.fmad_ab:
             fmad_ab()
+            return 0
+        if args.crossover:
+            crossover()
             return 0
         report = run()
     except Exception:  # noqa: BLE001 - any failed phase fails the run
@@ -399,6 +694,15 @@ def main(argv=None) -> int:
         "max_abs_err": report["max_abs_err"],
         "ms": report["ms"],
         "plain_ms": report["plain_ms"],
+    }, {
+        "name": "fused_bounce",
+        "route": "cuda",
+        "source": "mcpt_torch/csrc/fused_bounce.cu",
+        "replaces": "mcpt/pallas/cluster_megakernel.py:586",
+        "launches": report["hybrid"]["launches"],
+        "max_abs_err": report["hybrid"]["max_abs_err"],
+        "ms": report["hybrid"]["ms"],
+        "plain_ms": report["hybrid"]["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,10 @@
 ``mcpt``'s state is handed over as numpy arrays (``np.asarray`` of each JAX
 field), so this module needs neither JAX nor ``mcpt``.  Field names are the
 same on both sides: ``MegaScene`` tables (``tri, cbox, matt, lit`` plus the
-scalar fields), ``Camera`` and ``Framebuffer``.  The CLI checkpoint is the
+scalar fields), ``ClusterBVH`` (``nodes, wnodes, tri16, tri_map``),
+``ClusterMegaScene`` (its tables, scalars and scene-box tuples), ``Camera``
+and ``Framebuffer``.  A test can so feed ``mcpt``'s own tables to the port's
+engines.  The CLI checkpoint is the
 ``.ckpt.npz`` that ``tools/render.py`` writes — ``{sum, count, done}`` — so a
 render checkpointed by either CLI resumes under the other.
 """
@@ -15,11 +18,18 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from mcpt_torch.bvh.cluster import ClusterBVH
+from mcpt_torch.kernels.cluster_megakernel import ClusterMegaScene
 from mcpt_torch.kernels.megakernel import MegaScene
 from mcpt_torch.types import Camera, Framebuffer
 
 _SCALAR_FIELDS = {"n_tris": int, "n_mats": int, "n_lights": int,
                   "eps": float, "total_light_area": float}
+_CLUSTER_SCALARS = {"n_clusters": int, "leaf_size": int, "n_mats": int,
+                    "n_lights": int, "eps": float, "total_light_area": float,
+                    "bb_lo": lambda v: tuple(float(x) for x in np.ravel(v)),
+                    "bb_inv_ext": lambda v: tuple(float(x)
+                                                  for x in np.ravel(v))}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -44,6 +54,34 @@ def megascene_from_numpy(fields: Mapping, device) -> MegaScene:
 def megascene_to_numpy(mega: MegaScene) -> dict:
     return {k: (v if k in _SCALAR_FIELDS else _numpy(v))
             for k, v in mega._asdict().items()}
+
+
+def clusterbvh_from_numpy(fields: Mapping, device) -> ClusterBVH:
+    """``mcpt.bvh.cluster.ClusterBVH`` fields → the port's, on ``device``
+    (``tri_map`` int32, the rest f32)."""
+    return ClusterBVH(**{
+        k: _tensor(np.asarray(fields[k],
+                              np.int32 if k == "tri_map" else np.float32),
+                   device)
+        for k in ClusterBVH._fields})
+
+
+def clusterbvh_to_numpy(cl: ClusterBVH) -> dict:
+    return {k: _numpy(v) for k, v in cl._asdict().items()}
+
+
+def clustermegascene_from_numpy(fields: Mapping, device) -> ClusterMegaScene:
+    """``mcpt.pallas.cluster_megakernel.ClusterMegaScene`` fields (arrays,
+    scalars and the scene-box tuples) → the port's on ``device``."""
+    return ClusterMegaScene(**{
+        k: (_CLUSTER_SCALARS[k](fields[k]) if k in _CLUSTER_SCALARS
+            else _tensor(np.asarray(fields[k], np.float32), device))
+        for k in ClusterMegaScene._fields})
+
+
+def clustermegascene_to_numpy(cms: ClusterMegaScene) -> dict:
+    return {k: (v if k in _CLUSTER_SCALARS else _numpy(v))
+            for k, v in cms._asdict().items()}
 
 
 def camera_from_numpy(fields: Mapping, device) -> Camera:

@@ -25,6 +25,7 @@ product of BSDF weights and RR factors ≤ 1/0.05).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -298,6 +299,27 @@ def _resolve_schedule(schedule: str, spp: int) -> bool:
 # --------------------------------------------------------------------------
 
 
+def _wald(rows, o, d, t_min, t_max):
+    """Wald unit-triangle test of (…, k, 16) triangle rows (0:9 A, 9:12 b)
+    against rays o, d (three tensors each, broadcasting against the rows)
+    → (t, hit in (t_min, t_max) inside the triangle).  The CUDA kernels'
+    ``wald`` (``csrc/bounce_core.cuh``) does these operations in this
+    order."""
+    a = [rows[..., j] for j in range(12)]
+    opz = a[6] * o[0] + a[7] * o[1] + a[8] * o[2] + a[11]
+    dpz = a[6] * d[0] + a[7] * d[1] + a[8] * d[2]
+    th = -opz / dpz
+    opx = a[0] * o[0] + a[1] * o[1] + a[2] * o[2] + a[9]
+    dpx = a[0] * d[0] + a[1] * d[1] + a[2] * d[2]
+    u = opx + th * dpx
+    opy = a[3] * o[0] + a[4] * o[1] + a[5] * o[2] + a[10]
+    dpy = a[3] * d[0] + a[4] * d[1] + a[5] * d[2]
+    v = opy + th * dpy
+    ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (th > t_min)
+          & (th < t_max))
+    return th, ok
+
+
 def _closest(tri, ox, oy, oz, dx, dy, dz, t_min):
     """Closest Wald hit over all rows in row order, strict ``<`` (the first
     row wins an exact tie, as in the TPU kernel).  → (best_t, best_i) with
@@ -310,18 +332,7 @@ def _closest(tri, ox, oy, oz, dx, dy, dz, t_min):
     for r0 in range(0, tri.shape[0], _ROWS_PER_PASS):
         c = tri[r0:r0 + _ROWS_PER_PASS]
         k = c.shape[0]
-        a = [c[:, j][None, :] for j in range(12)]
-        opz = a[6] * o[0] + a[7] * o[1] + a[8] * o[2] + a[11]
-        dpz = a[6] * d[0] + a[7] * d[1] + a[8] * d[2]
-        th = -opz / dpz
-        opx = a[0] * o[0] + a[1] * o[1] + a[2] * o[2] + a[9]
-        dpx = a[0] * d[0] + a[1] * d[1] + a[2] * d[2]
-        u = opx + th * dpx
-        opy = a[3] * o[0] + a[4] * o[1] + a[5] * o[2] + a[10]
-        dpy = a[3] * d[0] + a[4] * d[1] + a[5] * d[2]
-        v = opy + th * dpy
-        ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (th > t_min)
-              & (th < _MISS))
+        th, ok = _wald(c[None], o, d, t_min, _MISS)
         th = torch.where(ok, th, math.inf)
         m = th.min(dim=1).values
         cols = torch.arange(k, device=ox.device)
@@ -339,26 +350,15 @@ def _occluded(tri, sox, soy, soz, iwx, iwy, iwz, limit, t_min):
     d = (iwx[:, None], iwy[:, None], iwz[:, None])
     lim = limit[:, None]
     for r0 in range(0, tri.shape[0], _ROWS_PER_PASS):
-        c = tri[r0:r0 + _ROWS_PER_PASS]
-        a = [c[:, j][None, :] for j in range(12)]
-        opz = a[6] * o[0] + a[7] * o[1] + a[8] * o[2] + a[11]
-        dpz = a[6] * d[0] + a[7] * d[1] + a[8] * d[2]
-        th = -opz / dpz
-        opx = a[0] * o[0] + a[1] * o[1] + a[2] * o[2] + a[9]
-        dpx = a[0] * d[0] + a[1] * d[1] + a[2] * d[2]
-        u = opx + th * dpx
-        opy = a[3] * o[0] + a[4] * o[1] + a[5] * o[2] + a[10]
-        dpy = a[3] * d[0] + a[4] * d[1] + a[5] * d[2]
-        v = opy + th * dpy
-        ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (th > t_min)
-              & (th < lim))
+        _, ok = _wald(tri[r0:r0 + _ROWS_PER_PASS][None], o, d, t_min, lim)
         occ = occ | ok.any(dim=1)
     return occ
 
 
 class _Ctx(NamedTuple):
     """Per-call constants of the plain version (the sf table as Python
-    floats, each an exact float32 value)."""
+    floats, each an exact float32 value).  ``mega`` is the engine's table
+    set: its ``matt``, ``lit`` and ``n_lights`` are read."""
 
     mega: MegaScene
     cdf: torch.Tensor
@@ -388,11 +388,18 @@ def _cam_ray(ctx: _Ctx, pxf, pyf, width, height, idx):
     return ([sf[j] + w_ort * off[j] for j in range(3)], [cdx, cdy, cdz])
 
 
-def _bounce(ctx: _Ctx, st: dict, salt0, pidx, depth_ok, rr_on) -> dict:
+def _bounce(ctx: _Ctx, st: dict, salt0, pidx, depth_ok, rr_on, closest,
+            occluded) -> dict:
     """One path-trace bounce on the live lanes in ``st`` (the TPU kernel's
     ``_make_bounce_core``): intersect → material → emission with the MIS
     discount → BSDF sample → NEE shadow ray → transparent → next ray →
-    termination → Russian roulette."""
+    termination → Russian roulette.
+
+    The intersectors are the engine's: ``closest(ox, oy, oz, dx, dy, dz,
+    t_min)`` → (best_t, (n, 16) triangle rows; best_t = 3e38 on a miss) and
+    ``occluded(sox, soy, soz, iwx, iwy, iwz, limit, t_min)`` → bool, so the
+    dense path and the hybrid share this one estimator, as the CUDA kernels
+    share ``bounce_core.cuh``."""
     mega, sf, seed = ctx.mega, ctx.sf, ctx.seed
     eps, t_min, area_l = sf[14], sf[15], sf[16]
     clampv = sf[18] if sf[18] > 0.0 else 3.0e38
@@ -403,8 +410,7 @@ def _bounce(ctx: _Ctx, st: dict, salt0, pidx, depth_ok, rr_on) -> dict:
     alive, inside = st["alive"], st["inside"]
     prev_sc, prev_pdf = st["prev_sc"], st["prev_pdf"]
 
-    best_t, best_i = _closest(mega.tri, ox, oy, oz, dx, dy, dz, t_min)
-    row = mega.tri[best_i]
+    best_t, row = closest(ox, oy, oz, dx, dy, dz, t_min)
     nx, ny, nz, mid = row[:, 12], row[:, 13], row[:, 14], row[:, 15]
     hit = (best_t < 3.0e38) & (alive > 0.0)
     segs = st["segs"] + alive
@@ -524,9 +530,8 @@ def _bounce(ctx: _Ctx, st: dict, salt0, pidx, depth_ok, rr_on) -> dict:
         pdf_b2 = (1.0 - 0.5 * gmask) * pdf_d2 + 0.5 * gmask * (
             (ns_ + 1.0) * inv_2pi * pw2)
         cand = (is_diff | is_glos) & (cos_s > 0.0) & (cos_l > 1e-6)
-        occ = _occluded(mega.tri, hx + eps * iwx, hy + eps * iwy,
-                        hz + eps * iwz, iwx, iwy, iwz, dist - 2.0 * eps,
-                        t_min)
+        occ = occluded(hx + eps * iwx, hy + eps * iwy, hz + eps * iwz, iwx,
+                       iwy, iwz, dist - 2.0 * eps, t_min)
         vis = cand.to(torch.float32) * (1.0 - occ.to(torch.float32))
         segs = segs + cand.to(torch.float32)
         if ctx.use_mis:
@@ -625,6 +630,11 @@ def render_mega_reference(mega: MegaScene, cam: T.Camera, width: int,
                seed=int(seed) & _M32, sf=sf, use_nee=use_nee, use_mis=mis)
     total = width * height
 
+    def closest(ox, oy, oz, dx, dy, dz, t_min):
+        best_t, best_i = _closest(mega.tri, ox, oy, oz, dx, dy, dz, t_min)
+        return best_t, mega.tri[best_i]
+
+    occluded = functools.partial(_occluded, mega.tri)
     n_lanes = n_pixels if regen else n_pixels * spp
     lane = torch.arange(n_lanes, dtype=torch.int64, device=dev)
     pixel = pixel_base + lane % n_pixels
@@ -671,7 +681,8 @@ def render_mega_reference(mega: MegaScene, cam: T.Camera, width: int,
             depth_ok = float(it + 1 < max_depth)
             rr_on = float(bool(rr) and it >= rr_start)
         alive_in = sub["alive"]
-        sub = _bounce(ctx, sub, salt0, pidx, depth_ok, rr_on)
+        sub = _bounce(ctx, sub, salt0, pidx, depth_ok, rr_on, closest,
+                      occluded)
         if regen:
             # path regeneration: a finished path starts its pixel's next
             # sample at once (new camera ray, reset path state)

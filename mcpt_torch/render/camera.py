@@ -4,12 +4,14 @@
 Right-handed basis ``right = dir × up``, ``up = right × dir``; row 0 of the
 image is the *bottom*.  The pinhole and orthographic cases follow the
 reference (``auxiliary.cpp:20-71``, ``rayGenerator.cl:10-28``).  Primary rays
-are generated inside the megakernel (``cam_ray``); ``tile_order`` and the
-wavefront ray generator are ported with the engines that use them.
+are generated inside the megakernel (``cam_ray``) and by the hybrid engine
+(``cluster_megakernel.camera_pool``); the wavefront ray generator is ported
+with its engine.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -70,3 +72,23 @@ def make_camera(cfg: CameraConfig, ortho_height: float | None = None,
         half_width=scalar(half_h * aspect),
         is_ortho=scalar(1.0 if is_ortho else 0.0),
     )
+
+
+@functools.lru_cache(maxsize=32)
+def tile_order(width: int, height: int, block: int = 1024):
+    """Pixel permutation that makes consecutive ``block``-ray groups
+    square-ish screen tiles (≈√block × √block) instead of scanline strips
+    (``mcpt/render/camera.py:86-109``).  Returns ``(perm, inv_perm)`` as
+    numpy int32: rays are generated for pixels ``perm`` and the image is
+    recovered as ``radiance[inv_perm]``.  Cached: callers must not write to
+    the arrays."""
+    tx = 1 << ((block.bit_length() - 1) // 2)
+    ty = block // tx
+    yy, xx = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    n_tx = (width + tx - 1) // tx
+    key = ((yy // ty) * n_tx + (xx // tx)) * (tx * ty) + (yy % ty) * tx + (
+        xx % tx)
+    perm = np.argsort(key.reshape(-1), kind="stable").astype(np.int32)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size, dtype=np.int32)
+    return perm, inv

@@ -2,11 +2,14 @@
 """Progressive render CLI — the port's counterpart of ``tools/render.py``.
 
 Same flags, seed schedule, progress line, snapshots, checkpoints and output
-files (``<stem>.hdr/.png/.exr``), plus ``--device`` (default ``cuda``).  The
-dense megakernel is the one engine ported so far: ``engine`` ``auto`` takes it
-for scenes up to 1500 triangles (``mcpt``'s rule, until the H100 crossover is
-measured) and ``mega`` forces it.  Every other engine and mode raises
-``NotImplementedError`` naming its ROADMAP item.
+files (``<stem>.hdr/.png/.exr``), plus ``--device`` (default ``cuda``).  Two
+engines are ported: the dense megakernel (``mega``) and the hybrid
+fused-bounce engine (``hybrid``); ``engine`` ``auto`` takes the megakernel up
+to ``MEGA_MAX_TRIS`` triangles and the hybrid past it.  On CUDA the hybrid
+first runs its pilot (``integrator.measure_schedule``) for the pool
+compaction caps, as ``tools/render.py`` does on its chip.  A config's
+``mesh`` renders single-device when one device is visible.  Every other
+engine and mode raises ``NotImplementedError`` naming its ROADMAP item.
 
 Usage:
     python -m mcpt_torch.render_cli [--config PATH] [--configid N] [--spp N]
@@ -27,10 +30,14 @@ import torch
 
 # mcpt engines not ported yet → their ROADMAP items (Queue 1)
 _NOT_PORTED = {
-    "hybrid": "Queue 1 items 6-9 (Slice 2: hybrid fused-bounce engine)",
-    "cluster-mega": "Queue 1 item 11 (Slice 3: cluster-mega engine)",
-    "wavefront": "Queue 1 item 10 (Slice 3: wavefront integrator)",
+    "cluster-mega": "Queue 1 item 10 (Slice 3: cluster-mega engine, kernel 3)",
+    "wavefront": "Queue 1 item 11 (Slice 3: wavefront integrator, kernel 4)",
 }
+# engine "auto": the dense megakernel up to this many triangles, the hybrid
+# past it.  The H100's crossover, measured by `python3 chip_smoke.py
+# --crossover` (PERF.md §5): the megakernel wins at 1564 tris (573 vs 377
+# Mrays/s), the hybrid at 1804 (426 vs 287).
+MEGA_MAX_TRIS = 1700
 
 
 def build_from_config(cfg, device):
@@ -69,10 +76,14 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="resume from the checkpoint in --out")
     ap.add_argument("--resort", choices=["auto", "on", "off"], default="auto",
-                    help="inter-bounce ray re-sorting (hybrid and wavefront "
-                         "engines only; the megakernel ignores it)")
+                    help="inter-bounce ray re-sorting of the wavefront "
+                         "engine (not ported; the megakernel and the hybrid, "
+                         "which always re-sorts, ignore it)")
     ap.add_argument("--profile", action="store_true",
-                    help="per-stage timing report at exit (StageTimer)")
+                    help="per-stage timing report at exit (StageTimer); the "
+                         "hybrid engine also prints a per-bounce "
+                         "bounce/sort/roulette/reduce breakdown of one "
+                         "instrumented step")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda runs the CUDA kernels, cpu the "
                          "plain PyTorch versions")
@@ -82,6 +93,7 @@ def main(argv=None):
     from mcpt_torch.config import load_config
     from mcpt_torch.convert import load_checkpoint, save_checkpoint
     from mcpt_torch.io import image as im
+    from mcpt_torch.kernels import cluster_megakernel as cmk
     from mcpt_torch.kernels import megakernel as mk
     from mcpt_torch.render import camera as camera_mod
     from mcpt_torch.render import integrator as integ
@@ -92,13 +104,19 @@ def main(argv=None):
         raise NotImplementedError(
             "testbvh/testall (the BVH quality harness) is not ported yet: "
             "ROADMAP Queue 1 item 12 (Slice 4)")
-    if cfg.mesh:
-        raise NotImplementedError(
-            "config 'mesh' (sharded rendering) is not ported yet: "
-            "ROADMAP Queue 1 item 13 (Slice 5)")
     device = torch.device(args.device)
+    if cfg.mesh:
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        if n_dev > 1:
+            raise NotImplementedError(
+                f"config 'mesh' over {n_dev} devices (sharded rendering) is "
+                "not ported yet: ROADMAP Queue 1 item 13 (Slice 5)")
+        print("config requests a device mesh but only one device is "
+              "visible — rendering single-chip")
 
+    t_build = time.perf_counter()
     scene, lights, cam_cfg = build_from_config(cfg, device)
+    t_build = time.perf_counter() - t_build
     width = args.width or cfg.width or cam_cfg.resolution[0]
     height = args.height or cfg.height or cam_cfg.resolution[1]
     if cam_cfg.resolution != (width, height):
@@ -131,26 +149,36 @@ def main(argv=None):
         f"nee={opts.nee} mis={opts.mis} rr={opts.russian_roulette} "
         f"intersector={opts.method} bvh={cfg.bvhtype} | device={device}"
     )
+    print(f"scene build: {t_build:.2f} s")
 
     engine = cfg.engine
     if engine == "auto":
-        # mcpt's TPU-measured crossover; the H100's is measured with the
-        # hybrid engine (ROADMAP Queue 1 item 9)
-        engine = "mega" if scene.n_tris <= 1500 else "hybrid"
-    if engine != "mega":
+        engine = "mega" if scene.n_tris <= MEGA_MAX_TRIS else "hybrid"
+    step_kw = dict(max_depth=opts.max_depth, rr=opts.russian_roulette,
+                   rr_start=opts.rr_start_depth, nee=opts.nee, mis=opts.mis,
+                   clamp=cfg.integrator.clamp)
+    if engine == "mega":
+        mega = mk.build_megascene(scene, lights)
+
+        def render_step(seed_step, step):
+            return mk.render_mega(mega, cam, width, height, spp=step,
+                                  seed=seed_step, **step_kw)
+    elif engine == "hybrid":
+        cms = cmk.build_cluster_megascene(scene, lights)
+        if device.type == "cuda":
+            # the pilot's unbiased pool compaction (tools/render.py:211-217)
+            step_kw["compact"] = integ.measure_schedule(cms, cam, opts)
+        print(f"hybrid: {cms.n_clusters} clusters, {cms.wnodes.shape[0]} "
+              f"wide nodes | pilot caps {step_kw.get('compact')} | key mode "
+              f"{cmk.resolve_key_mode('auto', step_kw.get('compact'))}")
+
+        def render_step(seed_step, step):
+            return cmk.render_hybrid(cms, cam, width, height, spp=step,
+                                     seed=seed_step, **step_kw)
+    else:
         raise NotImplementedError(
             f"engine {engine!r} is not ported yet: ROADMAP "
             f"{_NOT_PORTED.get(engine, _NOT_PORTED['wavefront'])}")
-
-    mega = mk.build_megascene(scene, lights)
-
-    def render_step(seed_step, step):
-        return mk.render_mega(
-            mega, cam, width, height, spp=step, seed=seed_step,
-            max_depth=opts.max_depth, rr=opts.russian_roulette,
-            rr_start=opts.rr_start_depth, nee=opts.nee, mis=opts.mis,
-            clamp=cfg.integrator.clamp,
-        )
 
     print(f"engine: {engine}")
     t0 = time.time()
@@ -213,6 +241,14 @@ def main(argv=None):
         print("\nprofile: CLI stage totals (the first render_step includes "
               "the kernel build)")
         print(timer.report())
+        if engine == "hybrid":
+            print("\nprofile: hybrid per-bounce breakdown (one instrumented "
+                  "step after a warm-up one)")
+            prof_kw = dict(step_kw, spp=min(step_size, spp),
+                           seed=cfg.seed + (spp + 1) * 7919)
+            cmk.profile_hybrid(cms, cam, width, height, **prof_kw)
+            t2, _, _ = cmk.profile_hybrid(cms, cam, width, height, **prof_kw)
+            print(t2.report())
     return 0
 
 

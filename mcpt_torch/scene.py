@@ -1,9 +1,11 @@
-"""Scene assembly: geometry + materials + Wald transforms + light table.
+"""Scene assembly: geometry + materials + Wald transforms + light table +
+LBVH + cluster BVH.
 
-The port's counterpart of ``mcpt/scene.py`` for the dense megakernel: it
-builds what that kernel reads — per-triangle Wald transforms, normals and
-material ids, the emissive-triangle light table, and the scale-aware epsilon.
-All of it is host numpy; the results land on the caller's ``device``.
+The port's counterpart of ``mcpt/scene.py``: per-triangle Wald transforms,
+normals and material ids (the dense megakernel's tables), the
+emissive-triangle light table, the scale-aware epsilon, and the acceleration
+structures the hybrid engine walks.  All of it is built on the host (numpy
+and CPU tensors); the results land on the caller's ``device``.
 """
 
 from __future__ import annotations
@@ -89,27 +91,58 @@ def build_wald(verts: np.ndarray, device) -> WaldTris:
 
 def build_scene(loaded: LoadedObject, bvhtype: str = "hlbvh",
                 device="cpu"):
-    """LoadedObject → (Scene, Lights) on ``device``.
+    """LoadedObject → (Scene, Lights) on ``device`` (``mcpt/scene.py:94``).
 
-    Builds what the dense megakernel reads: Wald transforms, normals,
-    material ids, the light table and ``eps = max(1e-4·diag, 1e-6)``.
-    ``scene.bvh`` and ``scene.clusters`` stay None: ``mcpt`` builds an LBVH
-    for every scene and clusters past 512 tris, but its mega engine reads
-    neither, and the port builds them with the large-scene engine (Slice 2).
-    ``bvhtype`` is validated as ``mcpt`` validates it.
+    Builds the Wald transforms, normals, material ids, the light table,
+    ``eps = max(1e-4·diag, 1e-6)``, the LBVH of every scene (on CPU tensors,
+    as ``mcpt`` builds on its CPU backend) and, past 512 triangles, the
+    cluster BVH.  Two clusterings are planned and the one with the lower
+    top-tree SAH is built: fixed Morton chunks, and the DP cut of a
+    treelet-optimised copy of the LBVH.
+
+    ``bvhtype``: ``hlbvh``/``lbvh``/``""`` keep the LBVH, ``treelet`` (or
+    ``treelet_opt``) restructures it with the C++ treelet optimiser;
+    ``treeletGPU`` needs the batched device optimiser, which is not ported.
     """
+    from mcpt_torch.bvh import cluster as cluster_mod
+    from mcpt_torch.bvh import lbvh as lbvh_mod
+    from mcpt_torch.bvh import treelet as treelet_mod
+
     if bvhtype not in _BVHTYPES:
         raise ValueError(f"unknown bvhtype {bvhtype!r}")
+    if bvhtype == "treeletGPU":
+        raise NotImplementedError(
+            "bvhtype 'treeletGPU' (mcpt.bvh.treelet_device, the batched "
+            "treelet DP) is not ported yet: ROADMAP Queue 1 item 12 "
+            "(Slice 4)")
     geom, mats = loaded.to_device(device)
+    verts = np.asarray(loaded.verts, np.float32).reshape(-1, 3, 3)
+    bvh = lbvh_mod.build_lbvh(torch.from_numpy(verts))
+    if bvhtype in ("treelet", "treelet_opt"):
+        bvh = treelet_mod.optimize_treelets(bvh)
     lights = build_lights(loaded.verts, loaded.mat_id, loaded.mtype,
                           loaded.ka, device)
     v = loaded.verts.reshape(-1, 3)
     diag = float(np.linalg.norm(v.max(axis=0) - v.min(axis=0)))
+    clusters = None
+    if geom.count > 512:
+        nrm = geom.normals.cpu().numpy()
+        p_morton = cluster_mod.plan_clusters(verts)
+        # the DP cut is planned on a treelet-optimised copy (tighter
+        # subtrees); scene.bvh keeps the configured bvhtype
+        plan_bvh = bvh
+        if bvhtype in ("", "hlbvh", "lbvh"):
+            plan_bvh = treelet_mod.optimize_treelets(bvh)
+        p_cut = cluster_mod.plan_clusters(verts, bvh=plan_bvh, dp=True)
+        best = (p_morton if cluster_mod.plan_sah(p_morton)
+                <= cluster_mod.plan_sah(p_cut) else p_cut)
+        clusters = cluster_mod.build_clusters(verts, nrm, loaded.mat_id,
+                                              plan=best, device=device)
     scene = Scene(
-        geom=geom, materials=mats, bvh=None,
+        geom=geom, materials=mats, bvh=bvh.to(device),
         eps=torch.tensor(np.float32(max(1e-4 * diag, 1e-6)), device=device),
         wald=build_wald(loaded.verts, device),
-        clusters=None,
+        clusters=clusters,
     )
     return scene, lights
 

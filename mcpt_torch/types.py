@@ -1,9 +1,9 @@
 """Core structure-of-arrays types as NamedTuples of torch tensors.
 
 The port's counterpart of ``mcpt/types.py``: the same fields, shapes and
-dtypes, held as tensors on an explicit ``device``.  ``BVH``, ``RayPool`` and
-``Hit`` belong to the large-scene and wavefront engines and are ported with
-them (ROADMAP Queue 1, Slices 2-3).
+dtypes, held as tensors on an explicit ``device``.  ``RayPool`` and ``Hit``
+belong to the wavefront engine and are ported with it (ROADMAP Queue 1,
+Slice 3).
 """
 
 from __future__ import annotations
@@ -51,6 +51,30 @@ class Geometry(NamedTuple):
         return self.verts.shape[0]
 
 
+class BVH(NamedTuple):
+    """Flattened SoA binary BVH with ``mcpt``'s layout contract
+    (``BVH/hlbvh.cpp:164-193``): 2N-1 nodes, internals [0, N-2], leaves
+    [N-1, 2N-2], root 0, leaf ``left == right ==`` triangle id, parent of the
+    root -1 (a single-triangle tree is one leaf node)."""
+
+    bbmin: torch.Tensor  # (2N-1, 3) f32
+    bbmax: torch.Tensor  # (2N-1, 3) f32
+    left: torch.Tensor  # (2N-1,) int32 — child node id; for leaves: triangle id
+    right: torch.Tensor  # (2N-1,) int32
+    parent: torch.Tensor  # (2N-1,) int32 — -1 for the root
+
+    @property
+    def n_nodes(self) -> int:
+        return self.left.shape[0]
+
+    @property
+    def n_tris(self) -> int:
+        return (self.n_nodes + 1) // 2
+
+    def to(self, device) -> "BVH":
+        return BVH(*(t.to(device) for t in self))
+
+
 class WaldTris(NamedTuple):
     """Unit-triangle affine transforms: for triangle i, ``A_i`` maps world
     space so the triangle becomes the unit triangle in the (u, v) plane at
@@ -63,9 +87,10 @@ class WaldTris(NamedTuple):
 class Scene(NamedTuple):
     geom: Geometry
     materials: Materials
-    # LBVH and cluster BVH arrive with the large-scene engine (Slice 2); the
-    # dense megakernel reads neither, so they stay None here.
-    bvh: object = None
+    # the per-triangle LBVH (``BVH``), built for every scene, and the
+    # clustered two-level BVH (``mcpt_torch.bvh.cluster.ClusterBVH``) past
+    # 512 triangles, which the hybrid engine walks
+    bvh: BVH | None = None
     # scale-aware epsilon, 1e-4 of the scene diagonal (0-d f32 tensor)
     eps: torch.Tensor | float = EPSILON
     wald: WaldTris | None = None

@@ -16,6 +16,7 @@ from mcpt import scenes as jscenes
 from mcpt import types as jtypes
 from mcpt.io import image as jimage
 from mcpt.io import objloader as jobj
+from mcpt.pallas import cluster_megakernel as jcmk
 from mcpt.pallas import megakernel as jmk
 from mcpt.render import camera as jcamera
 from mcpt.scene import build_lights as j_build_lights
@@ -103,18 +104,16 @@ def test_scene_and_megascene_tables_equal(name):
     for f in ("tri", "cdf", "emission", "total_area"):
         _eq(getattr(tlights, f), getattr(jlights, f))
     tscene, tlights = t_build_scene(tl, device="cpu")
-    if jl.verts.shape[0] <= 512:
-        jscene, jlights = j_build_scene(jl)
-    else:  # past 512 tris mcpt also builds clusters the megakernel never reads
-        geom, mats = jl.to_device()
-        v = jl.verts.reshape(-1, 3)
-        diag = float(np.linalg.norm(v.max(axis=0) - v.min(axis=0)))
-        jscene = jtypes.Scene(geom=geom, materials=mats, bvh=None,
-                              eps=jnp.float32(max(1e-4 * diag, 1e-6)),
-                              wald=jw)
+    jscene, jlights = j_build_scene(jl)
     _eq(tscene.eps, jscene.eps)
     _eq(tscene.geom.normals, jscene.geom.normals)
-    assert tscene.bvh is None and tscene.clusters is None
+    # the LBVH of every scene, and past 512 tris the cluster BVH
+    for f in tscene.bvh._fields:
+        _eq(getattr(tscene.bvh, f), getattr(jscene.bvh, f))
+    assert (tscene.clusters is None) == (jl.verts.shape[0] <= 512)
+    if tscene.clusters is not None:
+        for f in tscene.clusters._fields:
+            _eq(getattr(tscene.clusters, f), getattr(jscene.clusters, f))
     jm = jmk.build_megascene(jscene, jlights)
     tm = tmk.build_megascene(tscene, tlights)
     for f in ("tri", "cbox", "matt", "lit"):
@@ -193,6 +192,24 @@ def test_convert_round_trips(tmp_path):
         {k: np.asarray(v) for k, v in cam._asdict().items()}, "cpu")
     for k, v in convert.camera_to_numpy(tcam).items():
         _eq(v, getattr(cam, k))
+    # the cluster tables of a clustered scene (past 512 tris)
+    jscene, jlights = j_build_scene(jscenes.furnace_sphere()[0])
+    jcms = jcmk.build_cluster_megascene(jscene, jlights)
+    tcl = convert.clusterbvh_from_numpy(
+        {k: np.asarray(v) for k, v in jscene.clusters._asdict().items()},
+        "cpu")
+    for k, v in convert.clusterbvh_to_numpy(tcl).items():
+        _eq(v, getattr(jscene.clusters, k))
+    assert tcl.tri_map.dtype == torch.int32 and tcl.n_clusters == \
+        jscene.clusters.n_clusters
+    tcms = convert.clustermegascene_from_numpy(
+        {k: (v if isinstance(v, (int, float, tuple)) else np.asarray(v))
+         for k, v in jcms._asdict().items()}, "cpu")
+    for k, v in convert.clustermegascene_to_numpy(tcms).items():
+        if isinstance(v, tuple):
+            assert v == tuple(getattr(jcms, k)), k
+        else:
+            _eq(v, getattr(jcms, k))
     rng = np.random.default_rng(1)
     s = rng.random((6, 3)).astype(np.float32)
     c = np.full(6, 4.0, np.float32)

@@ -123,12 +123,62 @@ def test_cli_refuses_engines_not_ported(tmp_path):
     path = tmp_path / "c.json"
     path.write_text(json.dumps({"config": [{
         "objname": "procedural:quad_light_plane", "width": 8, "height": 8,
-        "engine": "hybrid"}]}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        "engine": "cluster-mega"}]}))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*Slice 3"):
         _cli(str(path), tmp_path / "o")
     with pytest.raises(NotImplementedError, match="testbvh"):
         _cli(os.path.join(ROOT, "config.json"), tmp_path / "o",
              "--configid", "4")
+
+
+def test_cli_hybrid_needs_clusters(tmp_path):
+    """quad_light_plane has 4 triangles: build_scene builds no cluster BVH
+    (only past 512), so forcing the hybrid engine is a ValueError."""
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps({"config": [{
+        "objname": "procedural:quad_light_plane", "width": 8, "height": 8,
+        "engine": "hybrid"}]}))
+    with pytest.raises(ValueError, match="no cluster BVH"):
+        _cli(str(path), tmp_path / "o")
+
+
+def _cli_config(tmp_path, configid, *extra):
+    """render_cli on a config.json entry at a tiny size on the CPU → its
+    standard output; checks the three images."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert _cli(os.path.join(ROOT, "config.json"), tmp_path,
+                    "--configid", str(configid), *extra) == 0
+    text = out.getvalue()
+    stem = text.split("wrote ")[1].split(".hdr")[0]
+    for ext in ("hdr", "png", "exr"):
+        assert (tmp_path / f"{stem}.{ext}").stat().st_size
+    return text, im.read_exr_rgb(str(tmp_path / f"{stem}.exr"))
+
+
+def test_cli_large_config_takes_the_hybrid(tmp_path):
+    """Config 7 (boxfield, 108,004 tris, depth 8, NEE+MIS+RR, 4 spp per
+    step) at 8×6 through the plain version: auto routes it to the hybrid."""
+    text, img = _cli_config(tmp_path, 7, "--width", "8", "--height", "6",
+                            "--spp", "4")
+    assert "108004 tris" in text and "engine: hybrid" in text
+    assert "pilot caps None" in text  # the pilot runs on CUDA only
+    assert img.shape == (6, 8, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.0
+
+
+def test_cli_mesh_config_renders_single_device(tmp_path):
+    """Config 9 asks for a samples mesh; with one device the port says so
+    and renders single-device, as tools/render.py does."""
+    text, img = _cli_config(tmp_path, 9, "--width", "8", "--height", "8",
+                            "--spp", "1")
+    assert ("config requests a device mesh but only one device is visible "
+            "— rendering single-chip") in text
+    assert "engine: hybrid" in text
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
 
 
 def test_checkpoint_resumes_across_clis(tmp_path, capsys):
