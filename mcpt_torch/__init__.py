@@ -8,7 +8,10 @@ module names so each counterpart is easy to find:
 - ``mcpt_torch.io``         — obj/mtl loading, HDR/PNG/EXR image IO
 - ``mcpt_torch.scenes``     — procedural scenes (cornell box et al.)
 - ``mcpt_torch.scene``      — scene assembly (Wald transforms, light table)
-- ``mcpt_torch.render``     — camera basis, framebuffer accumulation
+- ``mcpt_torch.bvh``        — LBVH, treelet optimiser, cluster BVH
+- ``mcpt_torch.rng``        — threefry keys and draws, ``jax.random``'s bits
+- ``mcpt_torch.render``     — camera, intersection, shading, the wavefront
+  integrator, framebuffer accumulation
 - ``mcpt_torch.kernels``    — hand-written CUDA kernels + their plain twins
 - ``mcpt_torch.convert``    — state conversion to and from ``mcpt``
 - ``mcpt_torch.render_cli`` — the progressive render CLI

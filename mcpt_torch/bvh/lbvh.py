@@ -74,12 +74,16 @@ def build_lbvh(verts: torch.Tensor) -> BVH:
 
 
 @contextlib.contextmanager
-def _one_thread():
-    """Run PyTorch's CPU ops on one thread.  The build is ~2000 small ops on
+def one_thread(device="cpu"):
+    """Run PyTorch's CPU ops on one thread (a no-op for another ``device``).
+    For loops of many small ops: the LBVH build is ~2000 small ops on
     ≤ 10⁵-element tensors.  On an idle 8-core host the 108k-tri build takes
     0.2 s on eight threads and 0.7 s on one; with six such processes sharing
     the cores, intra-op threads spin against each other and it takes 140 s
     on eight threads and 1.2 s on one."""
+    if torch.device(device).type != "cpu":
+        yield
+        return
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -91,7 +95,7 @@ def _one_thread():
 def build_lbvh_boxes(tri_min: torch.Tensor, tri_max: torch.Tensor) -> BVH:
     """Karras LBVH over N arbitrary AABBs (triangles, clusters or instances:
     the builder only sees boxes); leaf ``left == right`` = input box index."""
-    with _one_thread():
+    with one_thread():
         return _build(tri_min, tri_max)
 
 

@@ -176,7 +176,7 @@ class Config:
         )
 
 
-def parse_config_text(text: str, configid: int | None = None) -> Config:
+def _entry(text: str, configid: int | None) -> dict:
     doc = json.loads(strip_json_comments(text))
     entries = doc.get("config", [])
     if not entries:
@@ -184,7 +184,23 @@ def parse_config_text(text: str, configid: int | None = None) -> Config:
     cid = doc.get("configid", 0) if configid is None else configid
     if not 0 <= int(cid) < len(entries):
         raise ValueError(f"configid {cid} out of range [0, {len(entries)})")
-    return Config.from_entry(entries[int(cid)])
+    return entries[int(cid)]
+
+
+def parse_config_text(text: str, configid: int | None = None) -> Config:
+    return Config.from_entry(_entry(text, configid))
+
+
+def write_config_variant(path: str, configid: int, out_path: str,
+                         **overrides) -> str:
+    """Copy entry ``configid`` of the config file ``path`` into a one-entry
+    config at ``out_path`` with ``overrides`` set (e.g. ``engine=``), so a
+    run can change an entry without editing the shared file."""
+    with open(path, "r", encoding="utf-8") as f:
+        entry = dict(_entry(f.read(), configid), **overrides)
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump({"config": [entry]}, f, indent=1)
+    return out_path
 
 
 def load_config(path: str, configid: int | None = None) -> Config:

@@ -4,8 +4,9 @@
 field), so this module needs neither JAX nor ``mcpt``.  Field names are the
 same on both sides: ``MegaScene`` tables (``tri, cbox, matt, lit`` plus the
 scalar fields), ``ClusterBVH`` (``nodes, wnodes, tri16, tri_map``),
-``ClusterMegaScene`` (its tables, scalars and scene-box tuples), ``Camera``
-and ``Framebuffer``.  A test can so feed ``mcpt``'s own tables to the port's
+``ClusterMegaScene`` (its tables, scalars and scene-box tuples), ``Camera``,
+``Framebuffer``, and the wavefront's ``RayPool`` and ``Hit``; a threefry key
+crosses as its two words (``jax.random.key_data``).  A test can so feed ``mcpt``'s own tables to the port's
 engines.  The CLI checkpoint is the
 ``.ckpt.npz`` that ``tools/render.py`` writes — ``{sum, count, done}`` — so a
 render checkpointed by either CLI resumes under the other.
@@ -21,7 +22,8 @@ import torch
 from mcpt_torch.bvh.cluster import ClusterBVH
 from mcpt_torch.kernels.cluster_megakernel import ClusterMegaScene
 from mcpt_torch.kernels.megakernel import MegaScene
-from mcpt_torch.types import Camera, Framebuffer
+from mcpt_torch.rng import Key
+from mcpt_torch.types import Camera, Framebuffer, Hit, RayPool
 
 _SCALAR_FIELDS = {"n_tris": int, "n_mats": int, "n_lights": int,
                   "eps": float, "total_light_area": float}
@@ -100,6 +102,42 @@ def framebuffer_from_numpy(sum_, count, device) -> Framebuffer:
 
 def framebuffer_to_numpy(fb: Framebuffer) -> dict:
     return {"sum": _numpy(fb.sum), "count": _numpy(fb.count)}
+
+
+_INT32 = ("pixel", "tri")
+_BOOL = ("alive", "inside")
+
+
+def _field(k, v, device) -> torch.Tensor:
+    dtype = (np.int32 if k in _INT32 else np.bool_ if k in _BOOL
+             else np.float32)
+    return _tensor(np.asarray(v, dtype), device)
+
+
+def raypool_from_numpy(fields: Mapping, device) -> RayPool:
+    """``mcpt.types.RayPool`` fields → the port's on ``device``."""
+    return RayPool(**{k: _field(k, fields[k], device)
+                      for k in RayPool._fields})
+
+
+def raypool_to_numpy(pool: RayPool) -> dict:
+    return {k: _numpy(v) for k, v in pool._asdict().items()}
+
+
+def hit_from_numpy(fields: Mapping, device) -> Hit:
+    """``mcpt.types.Hit`` fields → the port's on ``device``."""
+    return Hit(**{k: _field(k, fields[k], device) for k in Hit._fields})
+
+
+def hit_to_numpy(hit: Hit) -> dict:
+    return {k: _numpy(v) for k, v in hit._asdict().items()}
+
+
+def key_from_data(words) -> Key:
+    """The two uint32 words of ``jax.random.key_data(k)`` → the port's
+    threefry ``Key``."""
+    k1, k2 = (int(x) & 0xFFFFFFFF for x in np.ravel(np.asarray(words)))
+    return Key(k1, k2)
 
 
 def load_checkpoint(path: str, device) -> tuple[Framebuffer, int]:

@@ -1,6 +1,8 @@
 // The 8-wide cluster walk: closest hit and any-hit for one ray per thread,
 // each thread with its own stack.  The intersector the hybrid fused bounce
-// (fused_bounce.cu) plugs into bounce_core.cuh's bounce<Isect>.
+// (fused_bounce.cu) and the cluster megakernel (cluster_mega.cu) plug into
+// bounce_core.cuh's bounce<Isect>, and the walk the wavefront engine's
+// traversal kernel (traverse.cu) runs on its own.
 //
 // Replaces mcpt/pallas/cluster_megakernel.py _make_cluster_intersectors.walk
 // (:106).  The TPU walks ONE scalar stack per 32x128-ray block, because a
@@ -122,12 +124,14 @@ struct ClusterIsect {
     }
   }
 
-  // closest hit -> its tri16 row (row 0 on a miss), best_t = kMiss on a miss
-  __device__ __forceinline__ const float* closest(const float* o,
-                                                  const float* d, float t_min,
-                                                  float& best_t) const {
-    best_t = kMiss;
-    int best_row = 0;
+  // closest hit in (t_min, limit) -> its tri16 row index, -1 on a miss;
+  // best_t is the hit's t, or `limit` on a miss.  Starting the bound at
+  // `limit` also prunes every box beyond it.
+  __device__ __forceinline__ int closest_row(const float* o, const float* d,
+                                             float t_min, float limit,
+                                             float& best_t) const {
+    best_t = limit;
+    int best_row = -1;
     walk(o, d, best_t, [&](int row0) {
       for (int r = 0; r < leaf_size; ++r) {
         const int row = row0 + r;
@@ -135,14 +139,22 @@ struct ClusterIsect {
         load_wald(row, c);
         wald(c, o, d, th, u, v);
         if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && th > t_min &&
-            th < kMiss && (th < best_t || (th == best_t && row < best_row))) {
+            (th < best_t || (th == best_t && row < best_row))) {
           best_t = th;
           best_row = row;
         }
       }
       return false;
     });
-    return tri16 + 16 * static_cast<size_t>(best_row);
+    return best_row;
+  }
+
+  // closest hit -> its tri16 row (row 0 on a miss), best_t = kMiss on a miss
+  __device__ __forceinline__ const float* closest(const float* o,
+                                                  const float* d, float t_min,
+                                                  float& best_t) const {
+    const int row = closest_row(o, d, t_min, kMiss, best_t);
+    return tri16 + 16 * static_cast<size_t>(row < 0 ? 0 : row);
   }
 
   // any hit in (t_min, limit)

@@ -19,31 +19,22 @@
 // the kernel is bound by issue rate and divergence, not by device memory
 // (its only global traffic is 16 B of output per lane).
 //
-// Schedules.  regen: one thread per pixel, a finished path starts the
-// pixel's next sample in place, capped at spp * max_depth iterations as on
-// the TPU.  batch: one thread per (sample, pixel).  Outputs are per-lane r,
-// g, b and live-segment counts; the wrapper reduces them.
+// Schedules (render_body.cuh, shared with the cluster megakernel).  regen:
+// one thread per pixel, a finished path starts the pixel's next sample in
+// place, capped at spp * max_depth iterations as on the TPU.  batch: one
+// thread per (sample, pixel).  Outputs are per-lane r, g, b and live-segment
+// counts; the wrapper reduces them.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "bounce_core.cuh"
+#include "render_body.cuh"
 
 namespace mcpt {
 
-constexpr int kChunk = 16;          // rows per chunk (CHUNK_TRIS)
-constexpr int kBlock = 128;         // threads per block
-constexpr int kMaxSmem = 232448;    // bytes a block may hold on sm_90
-
-// Dynamic shared memory the staged tables take, or 0 when they (with the
-// 19-float sf table beside them) do not fit a block and stay in global memory.
-inline size_t table_smem_bytes(int n_rows, int n_mat_rows, int n_lit_rows,
-                               int n_chunks) {
-  size_t bytes = sizeof(float) *
-                 (16u * (n_rows + n_mat_rows + n_lit_rows) + 8u * n_chunks);
-  return bytes + 19 * sizeof(float) <= kMaxSmem ? bytes : 0;
-}
+constexpr int kChunk = 16;  // rows per chunk (CHUNK_TRIS)
 
 // Dense triangle-table intersectors: every row in order (<= 128 tris) or
 // 16-row Morton chunks behind a per-thread slab test of the chunk box.
@@ -164,76 +155,8 @@ __global__ void __launch_bounds__(kBlock)
   if (lane >= p.n_lanes) return;
 
   DenseIsect isect{tri, cbox, p.n_tris, p.n_chunks, p.chunked != 0};
-  Shading sh;
-  sh.matt = matt;
-  sh.lit = lit;
-  sh.n_lights = p.n_lights;
-  sh.use_nee = p.use_nee != 0;
-  sh.use_mis = p.use_mis != 0;
-  sh.seed = p.seed;
-  sh.eps = sf[14];
-  sh.t_min = sf[15];
-  sh.area_l = sf[16];
-  sh.clampv = sf[18] > 0.0f ? sf[18] : kMiss;
-
-  const int pixel = p.pixel_base + lane % p.n_pixels;
-  const float pxf = static_cast<float>(pixel % p.width);
-  const float pyf = static_cast<float>(pixel / p.width);
-  const uint32_t total = static_cast<uint32_t>(p.total_pixels);
-  // RNG counter of (sample, pixel): (sample_base + sample) * W*H + pixel, mod 2^32
-  auto counter = [&](int sample) {
-    return static_cast<uint32_t>(p.sample_base + sample) * total +
-           static_cast<uint32_t>(pixel);
-  };
-
-  PathState s;
-  s.alive = 1.0f;
-  s.inside = 0.0f;
-  s.segs = 0.0f;
-  s.prev_sc = 0.0f;
-  s.prev_pdf = 0.0f;
-  for (int j = 0; j < 3; ++j) {
-    s.t[j] = 1.0f;
-    s.rad[j] = 0.0f;
-  }
-
-  if (p.regen) {
-    cam_ray(sf, p, pxf, pyf, counter(0), s);
-    int depth = 0, done = 0;
-    for (int it = 0; it < p.spp * p.max_depth && done < p.spp; ++it) {
-      uint32_t pidx = counter(done);
-      float depth_ok = depth + 1 < p.max_depth ? 1.0f : 0.0f;
-      float rr_on = (p.rr && depth >= p.rr_start) ? 1.0f : 0.0f;
-      bounce(s, isect, sh, 8u * static_cast<uint32_t>(depth) + 3u, pidx,
-             depth_ok, rr_on);
-      if (s.alive > 0.0f) {
-        ++depth;
-        continue;
-      }
-      // path finished: start the pixel's next sample in place
-      if (++done >= p.spp) break;
-      cam_ray(sf, p, pxf, pyf, counter(done), s);
-      for (int j = 0; j < 3; ++j) s.t[j] = 1.0f;
-      s.inside = 0.0f;
-      s.prev_sc = 0.0f;
-      s.prev_pdf = 0.0f;
-      s.alive = 1.0f;
-      depth = 0;
-    }
-  } else {
-    const uint32_t ray_idx = counter(lane / p.n_pixels);
-    cam_ray(sf, p, pxf, pyf, ray_idx, s);
-    for (int depth = 0; depth < p.max_depth && s.alive > 0.0f; ++depth) {
-      float depth_ok = depth + 1 < p.max_depth ? 1.0f : 0.0f;
-      float rr_on = (p.rr && depth >= p.rr_start) ? 1.0f : 0.0f;
-      bounce(s, isect, sh, 8u * static_cast<uint32_t>(depth) + 3u, ray_idx,
-             depth_ok, rr_on);
-    }
-  }
-  r[lane] = s.rad[0];
-  g[lane] = s.rad[1];
-  b[lane] = s.rad[2];
-  segs_out[lane] = s.segs;
+  render_lane(p, sf, isect, make_shading(p, sf, matt, lit), lane,
+              p.pixel_base + lane % p.n_pixels, r, g, b, segs_out);
 }
 
 }  // namespace mcpt

@@ -26,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mcpt_torch"
-SOURCES = ("megakernel.cu", "fused_bounce.cu")
+SOURCES = ("megakernel.cu", "fused_bounce.cu", "cluster_mega.cu",
+           "traverse.cu")
 # -fmad=false: no contracted multiply-adds, so the kernels round as the plain
 # PyTorch versions do (see csrc/bounce_core.cuh); no fast math either
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -142,6 +143,14 @@ def load(flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
         [ptr] * 4 + [i32] * 3 + [f32] * 4 + [ctypes.c_uint32] + [i32] * 6
         + [ptr] * 3 + [i32] + [ptr, ptr])
     lib.mcpt_fused_bounce.restype = i32
+    lib.mcpt_render_cluster.argtypes = (
+        [ptr] * 4 + [i32] * 2 + [ptr] * 2 + [i32] * 5 + [ptr] + [i32]
+        + [ptr] * 5 + [ptr])
+    lib.mcpt_render_cluster.restype = i32
+    lib.mcpt_traverse.argtypes = (
+        [ptr] * 2 + [i32] * 2 + [ptr] * 4 + [f32] + [i32] + [ptr] * 4
+        + [i32] + [ptr, ptr])
+    lib.mcpt_traverse.restype = i32
     lib.mcpt_tables_in_smem.argtypes = [i32] * 4
     lib.mcpt_tables_in_smem.restype = i32
     lib.mcpt_error_string.argtypes = [i32]

@@ -1,4 +1,5 @@
-"""The hybrid fused-bounce engine for large scenes.
+"""The large-scene engines: the hybrid fused bounce (kernel 2) and the
+cluster megakernel (kernel 3).
 
 Port of ``mcpt/pallas/cluster_megakernel.py``'s hybrid pipeline
 (``render_hybrid``, ``_render_hybrid_jit`` at :800, ``_fused_bounce_jit``
@@ -18,6 +19,11 @@ of every pixel as a flat pool of rays, one lane per (sample, pixel), and runs
 - ``fused_bounce``: the dispatcher — the plain version for CPU tensors, the
   hand-written CUDA kernel (``mcpt_torch/csrc/fused_bounce.cu``) for CUDA
   tensors, and an exception for anything else.  Nothing falls back;
+- ``render_cluster_mega`` (``engine=cluster-mega``; ``_render_cluster_jit``
+  at :360 in ``mcpt``, ``pallas_call`` at :418): whole paths per lane, the
+  dense megakernel's body with the cluster walk plugged in, pixels in tile
+  order.  ``render_cluster_mega_reference`` is its plain version, the
+  kernel is ``mcpt_torch/csrc/cluster_mega.cu``;
 - the pipeline around it: camera rays, sort keys, the compaction schedule,
   ``render_hybrid`` and the stage-timed ``profile_hybrid``.
 
@@ -44,7 +50,7 @@ import torch
 
 from mcpt_torch import types as T
 from mcpt_torch.bvh.cluster import STACK_CAP
-from mcpt_torch.bvh.lbvh import morton30
+from mcpt_torch.bvh.lbvh import morton30, one_thread
 from mcpt_torch.kernels import megakernel as mk
 
 SUBT = 32  # pool rows are a multiple of SUBT (mcpt's ray-block height)
@@ -59,9 +65,15 @@ _M32 = 0xFFFFFFFF
 # plain version: lanes bounced per pass (bounds its memory at the full pool)
 _LANE_CHUNK = 1 << 18
 
-# kernel launches made by ``fused_bounce`` on CUDA tensors (never the plain
-# version's calls) — read by chip_smoke.py to show the main path used the kernel
+# kernel launches made by ``fused_bounce`` (kernel 2) and by
+# ``render_cluster_mega`` (kernel 3) on CUDA tensors (never the plain
+# versions' calls) — read by chip_smoke.py to show the main path used them
 LAUNCHES = 0
+CLUSTER_MEGA_LAUNCHES = 0
+# work done by ``walk_reference``: child boxes slab-tested (8 per internal
+# pop) and triangle rows Wald-tested (an any-hit walk stops at its first
+# hit, as the CUDA walk does) — the counts behind chip_smoke.py's bounds
+WALK_WORK = {"boxes": 0, "rows": 0}
 
 
 class ClusterMegaScene(NamedTuple):
@@ -130,6 +142,15 @@ def _octant(dx, dy, dz) -> torch.Tensor:
 
 def walk_reference(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
                    ox, oy, oz, dx, dy, dz, t_min: float, limit=None):
+    """``_walk``: on CPU tensors on one PyTorch thread (its loop is many
+    small ops; see ``lbvh.one_thread``)."""
+    with one_thread(ox.device):
+        return _walk(wnodes, tri16, leaf_size, ox, oy, oz, dx, dy, dz, t_min,
+                     limit)
+
+
+def _walk(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
+          ox, oy, oz, dx, dy, dz, t_min: float, limit=None):
     """Stack walk of the 8-wide cluster tree, one stack per ray, vectorised
     over rays (each loop pops one node of every ray that has one left).
 
@@ -152,6 +173,7 @@ def walk_reference(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
     shifts = 3 * torch.arange(8, device=dev)
     row_iota = torch.arange(leaf_size, device=dev)
+    boxes, rows_tested = 0, torch.zeros((), dtype=torch.int64, device=dev)
     while True:
         act = torch.nonzero((sp > 0) & ~occ).squeeze(1)
         if act.numel() == 0:
@@ -162,6 +184,7 @@ def walk_reference(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
 
         ia, ni = act[~is_leaf], node[~is_leaf]
         if ia.numel():  # internal: slab-test 8 children, push the hit ones
+            boxes += 8 * ia.numel()
             w = wnodes[ni]
             box = w[:, :48].reshape(-1, 8, 6)
             o = (ox[ia, None], oy[ia, None], oz[ia, None])
@@ -197,8 +220,13 @@ def walk_reference(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
             d = (dx[la, None], dy[la, None], dz[la, None])
             if any_hit:
                 _, ok = mk._wald(tri16[rows], o, d, t_min, limit[la, None])
-                occ[la] |= ok.any(dim=1)
+                blocked = ok.any(dim=1)
+                occ[la] |= blocked
+                rows_tested += torch.where(
+                    blocked, ok.to(torch.int64).argmax(dim=1) + 1,
+                    leaf_size).sum()
             else:
+                rows_tested += leaf_size * la.numel()
                 th, ok = mk._wald(tri16[rows], o, d, t_min, _MISS)
                 th = torch.where(ok, th, math.inf)
                 m = th.min(dim=1).values
@@ -209,6 +237,8 @@ def walk_reference(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
                 upd = (m < bt) | ((m == bt) & (row < br))
                 best_t[la] = torch.where(upd, m, bt)
                 best_row[la] = torch.where(upd, row, br)
+    WALK_WORK["boxes"] += boxes
+    WALK_WORK["rows"] += int(rows_tested)
     return occ if any_hit else (best_t, best_row)
 
 
@@ -344,6 +374,128 @@ def fused_bounce(cms: ClusterMegaScene, state: torch.Tensor,
     if kind == "cuda":
         return _fused_bounce_cuda(*args)
     raise ValueError(f"fused_bounce runs on cpu or cuda tensors, not {kind}")
+
+
+# --------------------------------------------------------------------------
+# kernel 3, the cluster megakernel: whole paths through the cluster walk
+# --------------------------------------------------------------------------
+
+
+def _tile_pixels(width: int, height: int, device):
+    """``tile_order(width, height, BLKT)`` → (perm, inv_perm) as int64
+    tensors on ``device``: lane i renders pixel perm[i % W·H]."""
+    from mcpt_torch.render.camera import tile_order
+
+    perm, inv = tile_order(width, height, block=BLKT)
+    return (torch.from_numpy(perm).to(device, torch.int64),
+            torch.from_numpy(inv).to(device, torch.int64))
+
+
+def render_cluster_mega_reference(cms: ClusterMegaScene, cam: T.Camera,
+                                  width: int, height: int, spp: int, seed,
+                                  max_depth: int = 8, rr: bool = False,
+                                  rr_start: int = 3, nee: bool = False,
+                                  mis: bool = False, clamp: float = 0.0,
+                                  t_min: float = 1e-4,
+                                  schedule: str = "auto"):
+    """The plain version of the cluster megakernel → ((W·H, 3) radiance sum
+    in pixel order, float64 segment count): the dense megakernel's lane loop
+    (``megakernel.render_lanes_reference``) with the cluster walk's
+    intersectors and the pixels in tile order.  Its RNG counters are the
+    dense ones, so it computes the dense megakernel's and the hybrid's
+    streams."""
+    regen = mk._resolve_schedule(schedule, spp)
+    perm, inv = _tile_pixels(width, height, cms.wnodes.device)
+    lanes = mk.render_lanes_reference(
+        cms, cam, width, height, spp, seed, max_depth, rr, rr_start, nee,
+        mis, clamp, t_min, perm, 0, regen, *_walk_pair(cms))
+    radiance, segs = mk._reduce(lanes, regen, spp, width * height)
+    return radiance[inv].contiguous(), segs
+
+
+def _render_cluster_mega_cuda(cms: ClusterMegaScene, cam: T.Camera, width,
+                              height, spp, seed, max_depth, rr, rr_start, nee,
+                              mis, clamp, t_min, schedule):
+    """Launch ``mcpt_torch/csrc/cluster_mega.cu`` on the current stream.
+    Raises on a refused launch and on the stack-overflow flag (read back,
+    so the call synchronises)."""
+    global CLUSTER_MEGA_LAUNCHES
+    from mcpt_torch.kernels import _build
+
+    regen = mk._resolve_schedule(schedule, spp)
+    for name in ("wnodes", "tri16", "matt", "lit"):
+        mk._check_cuda(f"cms.{name}", getattr(cms, name))
+    dev = cms.wnodes.device
+    for t in (cms.tri16, cms.matt, cms.lit):
+        if t.device != dev:
+            raise ValueError(f"tables on {t.device} and {dev}")
+    if (cms.wnodes.shape[1:] != (64,) or cms.tri16.shape[1:] != (16,)
+            or cms.tri16.shape[0] != cms.n_clusters * cms.leaf_size):
+        raise ValueError("cluster tables have the wrong shapes")
+    if cms.wnodes.data_ptr() % 16 or cms.tri16.data_ptr() % 16:
+        raise ValueError("wnodes and tri16 must be 16-byte aligned (the "
+                         "kernel reads them as float4)")
+    sf = mk._sf(cms, cam, t_min, clamp)
+    mk._check_cuda("camera", sf)
+    if sf.device != dev:
+        raise ValueError(f"camera on {sf.device}, tables on {dev}")
+    n_pixels = width * height
+    perm, inv = _tile_pixels(width, height, dev)
+    pix = perm.to(torch.int32)
+    si = mk._si(0, cms.n_mats, cms.n_lights, width, height, spp, seed,
+                max_depth, rr, rr_start, n_pixels, 0, 0)
+    n_lanes = n_pixels if regen else n_pixels * spp
+    out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mcpt_render_cluster(
+            si.ctypes.data, sf.data_ptr(), cms.wnodes.data_ptr(),
+            cms.tri16.data_ptr(), cms.wnodes.shape[0], cms.leaf_size,
+            cms.matt.data_ptr(), cms.lit.data_ptr(), cms.matt.shape[0],
+            cms.lit.shape[0], int(nee and cms.n_lights > 0), int(mis),
+            int(regen), pix.data_ptr(), n_lanes, out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
+            err.data_ptr(), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"cluster megakernel launch failed: CUDA error "
+                           f"{rc} ({lib.mcpt_error_string(rc).decode()})")
+    CLUSTER_MEGA_LAUNCHES += 1
+    if int(err.item()) != 0:
+        raise RuntimeError(f"cluster megakernel: traversal stack overflow "
+                           f"(> {STACK_CAP} entries); collapse_wide should "
+                           "have rejected this tree")
+    radiance, segs = mk._reduce(out, regen, spp, n_pixels)
+    return radiance[inv].contiguous(), segs
+
+
+def render_cluster_mega(cms: ClusterMegaScene, cam: T.Camera, width: int,
+                        height: int, spp: int, seed, max_depth: int = 8,
+                        rr: bool = False, rr_start: int = 3,
+                        nee: bool = False, mis: bool = False,
+                        clamp: float = 0.0, t_min: float = 1e-4,
+                        schedule: str = "auto"):
+    """Render ``spp`` samples with whole paths per lane through the cluster
+    walk → ((W·H, 3) radiance sum in pixel order, float64 segment count),
+    with ``mcpt.pallas.cluster_megakernel.render_cluster_mega``'s arguments
+    (less the TPU-only ``interpret`` and ``subt``).  ``schedule``:
+    ``regen`` (one lane per pixel, in-place regeneration), ``batch`` (one
+    lane per (sample, pixel)) or ``auto`` (regen when spp > 1).  Lanes take
+    their pixels in tile order (``camera.tile_order``, ``BLKT``), so a
+    warp's rays start close together.
+
+    The device of the tables decides: CPU tensors run the plain version,
+    CUDA tensors launch kernel 3 (or raise)."""
+    args = (cms, cam, width, height, spp, seed, max_depth, rr, rr_start, nee,
+            mis, clamp, t_min, schedule)
+    kind = cms.wnodes.device.type
+    if kind == "cpu":
+        return render_cluster_mega_reference(*args)
+    if kind == "cuda":
+        return _render_cluster_mega_cuda(*args)
+    raise ValueError(f"render_cluster_mega runs on cpu or cuda tensors, not "
+                     f"{kind}")
 
 
 # --------------------------------------------------------------------------

@@ -10,7 +10,9 @@ Port of ``mcpt/pallas/megakernel.py`` (``_render_mega_jit``, whose
   ``UNROLL_MAX_TRIS`` tris, never-hit pad rows and 16-row chunk AABBs;
 - ``render_mega_reference`` — the plain PyTorch version: the same counter-hash
   RNG, camera ray, closest hit, bounce core and both lane schedules, written
-  as tensor ops over lanes;
+  as tensor ops over lanes (``render_lanes_reference``, which the cluster
+  megakernel's plain version runs with its own intersectors and pixel
+  table);
 - ``render_mega`` — the dispatcher: the plain version for CPU tensors, the
   hand-written CUDA kernel (``mcpt_torch/csrc/megakernel.cu``) for CUDA
   tensors, and an exception for anything else.  Nothing falls back.
@@ -25,7 +27,6 @@ product of BSDF weights and RR factors ≤ 1/0.05).
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import NamedTuple
 
@@ -52,6 +53,12 @@ _GR = 0x9E3779B1
 # kernel launches made by ``render_mega`` on CUDA tensors (never the plain
 # version's calls) — read by chip_smoke.py to show the main path used the kernel
 LAUNCHES = 0
+# work the kernel does that ``render_mega_reference`` counts as it runs:
+# triangle rows Wald-tested and chunk boxes slab-tested (exact in the
+# unrolled tier; in the chunked tier a lower bound: every box, plus one
+# chunk's rows per closest hit and one row per blocked shadow ray) — the
+# counts behind chip_smoke.py's bound
+WORK = {"boxes": 0, "rows": 0}
 
 
 # --------------------------------------------------------------------------
@@ -256,13 +263,13 @@ def build_megascene(scene: T.Scene, lights=None, device=None) -> MegaScene:
 # --------------------------------------------------------------------------
 
 
-def _si(mega: MegaScene, width, height, spp, seed, max_depth, rr, rr_start,
-        n_pixels, pixel_base, sample_base) -> np.ndarray:
+def _si(n_tris, n_mats, n_lights, width, height, spp, seed, max_depth, rr,
+        rr_start, n_pixels, pixel_base, sample_base) -> np.ndarray:
     """int32[14]: 0 width, 1 height, 2 n_tris, 3 max_depth, 4 seed, 5 rr,
     6 rr_start, 7 n_pixels, 8 n_mats, 9 n_lights, 10 pixel_base, 11 W·H,
     12 spp, 13 sample_base.  The seed wraps to int32 as ``mcpt``'s does."""
-    vals = [width, height, mega.n_tris, max_depth, seed, int(rr), rr_start,
-            n_pixels, mega.n_mats, mega.n_lights, pixel_base, width * height,
+    vals = [width, height, n_tris, max_depth, seed, int(rr), rr_start,
+            n_pixels, n_mats, n_lights, pixel_base, width * height,
             spp, sample_base]
     return np.array([int(v) & _M32 for v in vals], np.uint32).view(np.int32)
 
@@ -343,16 +350,61 @@ def _closest(tri, ox, oy, oz, dx, dy, dz, t_min):
     return best_t, best_i
 
 
-def _occluded(tri, sox, soy, soz, iwx, iwy, iwz, limit, t_min):
-    """Any Wald hit in (t_min, limit) → bool per lane."""
+def _occluded_first(tri, sox, soy, soz, iwx, iwy, iwz, limit, t_min):
+    """Any Wald hit in (t_min, limit) → (bool per lane, the first blocking
+    row per lane, or the row count where none blocks)."""
+    n_rows = tri.shape[0]
     occ = torch.zeros(sox.shape, dtype=torch.bool, device=sox.device)
+    first = torch.full(sox.shape, n_rows, dtype=torch.int64,
+                       device=sox.device)
     o = (sox[:, None], soy[:, None], soz[:, None])
     d = (iwx[:, None], iwy[:, None], iwz[:, None])
     lim = limit[:, None]
-    for r0 in range(0, tri.shape[0], _ROWS_PER_PASS):
+    for r0 in range(0, n_rows, _ROWS_PER_PASS):
         _, ok = _wald(tri[r0:r0 + _ROWS_PER_PASS][None], o, d, t_min, lim)
-        occ = occ | ok.any(dim=1)
-    return occ
+        blocks = ok.any(dim=1)
+        first = torch.where(blocks & ~occ,
+                            r0 + ok.to(torch.int64).argmax(dim=1), first)
+        occ = occ | blocks
+    return occ, first
+
+
+def _occluded(tri, sox, soy, soz, iwx, iwy, iwz, limit, t_min):
+    """Any Wald hit in (t_min, limit) → bool per lane."""
+    return _occluded_first(tri, sox, soy, soz, iwx, iwy, iwz, limit,
+                           t_min)[0]
+
+
+def _dense_pair(mega: MegaScene):
+    """The dense (closest, occluded) intersectors ``_bounce`` takes, over
+    every real triangle row in row order; they add the kernel's work to
+    ``WORK`` as they go."""
+    chunked = mega.n_tris > UNROLL_MAX_TRIS
+    n_chunks = mega.cbox.shape[0]
+
+    def closest(ox, oy, oz, dx, dy, dz, t_min):
+        best_t, best_i = _closest(mega.tri, ox, oy, oz, dx, dy, dz, t_min)
+        n = ox.shape[0]
+        if chunked:
+            WORK["boxes"] += n * n_chunks
+            WORK["rows"] += CHUNK_TRIS * int((best_t < _MISS).sum())
+        else:
+            WORK["rows"] += n * mega.n_tris
+        return best_t, mega.tri[best_i]
+
+    def occluded(sox, soy, soz, iwx, iwy, iwz, limit, t_min):
+        occ, first = _occluded_first(mega.tri, sox, soy, soz, iwx, iwy, iwz,
+                                     limit, t_min)
+        if chunked:
+            n_occ = int(occ.sum())
+            WORK["boxes"] += (occ.numel() - n_occ) * n_chunks + n_occ
+            WORK["rows"] += n_occ
+        else:
+            WORK["rows"] += int(torch.where(occ, first + 1,
+                                            mega.n_tris).sum())
+        return occ
+
+    return closest, occluded
 
 
 class _Ctx(NamedTuple):
@@ -530,8 +582,14 @@ def _bounce(ctx: _Ctx, st: dict, salt0, pidx, depth_ok, rr_on, closest,
         pdf_b2 = (1.0 - 0.5 * gmask) * pdf_d2 + 0.5 * gmask * (
             (ns_ + 1.0) * inv_2pi * pw2)
         cand = (is_diff | is_glos) & (cos_s > 0.0) & (cos_l > 1e-6)
-        occ = occluded(hx + eps * iwx, hy + eps * iwy, hz + eps * iwz, iwx,
-                       iwy, iwz, dist - 2.0 * eps, t_min)
+        # shadow rays of the candidates only, as the kernels trace them
+        # (a non-candidate's occlusion would be masked off anyway)
+        ci = torch.nonzero(cand).squeeze(1)
+        occ = torch.zeros_like(cand)
+        if ci.numel():
+            occ[ci] = occluded((hx + eps * iwx)[ci], (hy + eps * iwy)[ci],
+                               (hz + eps * iwz)[ci], iwx[ci], iwy[ci],
+                               iwz[ci], (dist - 2.0 * eps)[ci], t_min)
         vis = cand.to(torch.float32) * (1.0 - occ.to(torch.float32))
         segs = segs + cand.to(torch.float32)
         if ctx.use_mis:
@@ -604,40 +662,35 @@ def _bounce(ctx: _Ctx, st: dict, salt0, pidx, depth_ok, rr_on, closest,
     )
 
 
-def render_mega_reference(mega: MegaScene, cam: T.Camera, width: int,
-                          height: int, spp: int, seed, max_depth: int = 16,
-                          rr: bool = False, rr_start: int = 3,
-                          nee: bool = False, mis: bool = False,
-                          clamp: float = 0.0, t_min: float = 1e-4,
-                          pixel_base: int = 0, pixel_count: int | None = None,
-                          sample_base: int = 0, schedule: str = "auto"):
-    """The plain PyTorch version of the megakernel, on ``mega``'s device →
-    ((pixel_count, 3) f32 radiance sum over spp, float64 segment count).
+def render_lanes_reference(tables, cam: T.Camera, width: int, height: int,
+                           spp: int, seed, max_depth: int, rr: bool,
+                           rr_start: int, nee: bool, mis: bool, clamp: float,
+                           t_min: float, pix: torch.Tensor, sample_base: int,
+                           regen: bool, closest, occluded) -> torch.Tensor:
+    """The lanes of a megakernel as tensors → (4, n_lanes) per-lane r, g,
+    b and segments.  ``tables`` supplies ``matt``, ``lit``, ``n_lights``,
+    ``eps`` and ``total_light_area``; ``(closest, occluded)`` are the
+    engine's intersectors (``_bounce``); ``pix`` holds the n_pixels pixel
+    ids, and lane l renders pixel ``pix[l % n_pixels]``.
 
-    Lanes are tensors: ``regen`` keeps one lane per pixel and loops while
-    any lane has samples left (capped at spp·max_depth iterations, as the
-    TPU kernel is); ``batch`` keeps one lane per (sample, pixel) and loops
-    while any lane is alive.  Each iteration gathers the live lanes, runs
-    the bounce core on them and scatters them back, so a lane stops at its
-    own death exactly as a CUDA thread does.  The RNG counter of a
-    (sample, pixel) is ``(sample_base + sample)·W·H + pixel`` mod 2³²."""
-    regen = _resolve_schedule(schedule, spp)
-    n_pixels = width * height if pixel_count is None else pixel_count
-    dev = mega.tri.device
-    sf = [float(x) for x in _sf(mega, cam, t_min, clamp).cpu().tolist()]
-    use_nee = nee and mega.n_lights > 0
-    ctx = _Ctx(mega=mega, cdf=mega.lit[:mega.n_lights, 15].contiguous(),
+    ``regen`` keeps one lane per pixel and loops while any lane has samples
+    left (capped at spp·max_depth iterations, as the TPU kernel is); batch
+    keeps one lane per (sample, pixel) and loops while any lane is alive.
+    Each iteration gathers the live lanes, runs the bounce core on them and
+    scatters them back, so a lane stops at its own death exactly as a CUDA
+    thread does.  The RNG counter of a (sample, pixel) is
+    ``(sample_base + sample)·W·H + pixel`` mod 2³²."""
+    n_pixels = pix.shape[0]
+    dev = pix.device
+    sf = [float(x) for x in _sf(tables, cam, t_min, clamp).cpu().tolist()]
+    use_nee = nee and tables.n_lights > 0
+    ctx = _Ctx(mega=tables, cdf=tables.lit[:tables.n_lights, 15].contiguous(),
                seed=int(seed) & _M32, sf=sf, use_nee=use_nee, use_mis=mis)
     total = width * height
 
-    def closest(ox, oy, oz, dx, dy, dz, t_min):
-        best_t, best_i = _closest(mega.tri, ox, oy, oz, dx, dy, dz, t_min)
-        return best_t, mega.tri[best_i]
-
-    occluded = functools.partial(_occluded, mega.tri)
     n_lanes = n_pixels if regen else n_pixels * spp
     lane = torch.arange(n_lanes, dtype=torch.int64, device=dev)
-    pixel = pixel_base + lane % n_pixels
+    pixel = pix.to(torch.int64)[lane % n_pixels]
     pxf = (pixel % width).to(torch.float32)
     pyf = (pixel // width).to(torch.float32)
     sample = torch.zeros_like(lane) if regen else lane // n_pixels
@@ -670,9 +723,9 @@ def render_mega_reference(mega: MegaScene, cam: T.Camera, width: int,
             break
         sub = {k: v[live] for k, v in st.items()}
         if regen:
-            dv, dn, pix = depth_v[live], done[live], pixel[live]
+            dv, dn, pix_l = depth_v[live], done[live], pixel[live]
             salt0 = 8 * dv + 3
-            pidx = ((sample_base + dn) * total + pix) & _M32
+            pidx = ((sample_base + dn) * total + pix_l) & _M32
             depth_ok = torch.where(dv + 1 < max_depth, 1.0, 0.0)
             rr_on = torch.where(dv >= rr_start, 1.0, 0.0) * float(bool(rr))
         else:
@@ -692,7 +745,7 @@ def render_mega_reference(mega: MegaScene, cam: T.Camera, width: int,
             regf = reg.to(torch.float32)
             (cox, coy, coz), cd = _cam_ray(
                 ctx, pxf[live], pyf[live], width, height,
-                ((sample_base + dn) * total + pix) & _M32)
+                ((sample_base + dn) * total + pix_l) & _M32)
             for k, new in zip(("ox", "oy", "oz"), (cox, coy, coz)):
                 sub[k] = torch.where(reg, new, sub[k])
             for k, new in zip(("dx", "dy", "dz"), cd):
@@ -708,7 +761,27 @@ def render_mega_reference(mega: MegaScene, cam: T.Camera, width: int,
             st[k][live] = v
         it += 1
 
-    lanes = torch.stack([st["rr"], st["rg"], st["rb"], st["segs"]])
+    return torch.stack([st["rr"], st["rg"], st["rb"], st["segs"]])
+
+
+def render_mega_reference(mega: MegaScene, cam: T.Camera, width: int,
+                          height: int, spp: int, seed, max_depth: int = 16,
+                          rr: bool = False, rr_start: int = 3,
+                          nee: bool = False, mis: bool = False,
+                          clamp: float = 0.0, t_min: float = 1e-4,
+                          pixel_base: int = 0, pixel_count: int | None = None,
+                          sample_base: int = 0, schedule: str = "auto"):
+    """The plain PyTorch version of the megakernel, on ``mega``'s device →
+    ((pixel_count, 3) f32 radiance sum over spp, float64 segment count):
+    ``render_lanes_reference`` with the dense intersectors and the linear
+    pixel map ``pixel_base + lane % pixel_count``."""
+    regen = _resolve_schedule(schedule, spp)
+    n_pixels = width * height if pixel_count is None else pixel_count
+    pix = pixel_base + torch.arange(n_pixels, dtype=torch.int64,
+                                    device=mega.tri.device)
+    lanes = render_lanes_reference(
+        mega, cam, width, height, spp, seed, max_depth, rr, rr_start, nee,
+        mis, clamp, t_min, pix, sample_base, regen, *_dense_pair(mega))
     return _reduce(lanes, regen, spp, n_pixels)
 
 
@@ -755,8 +828,8 @@ def _render_mega_cuda(mega: MegaScene, cam: T.Camera, width, height, spp,
     dev = mega.tri.device
     if sf.device != dev:
         raise ValueError(f"camera on {sf.device}, tables on {dev}")
-    si = _si(mega, width, height, spp, seed, max_depth, rr, rr_start,
-             n_pixels, pixel_base, sample_base)
+    si = _si(mega.n_tris, mega.n_mats, mega.n_lights, width, height, spp,
+             seed, max_depth, rr, rr_start, n_pixels, pixel_base, sample_base)
     n_lanes = n_pixels if regen else n_pixels * spp
     out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
     if lib is None:

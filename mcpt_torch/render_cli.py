@@ -2,19 +2,25 @@
 """Progressive render CLI — the port's counterpart of ``tools/render.py``.
 
 Same flags, seed schedule, progress line, snapshots, checkpoints and output
-files (``<stem>.hdr/.png/.exr``), plus ``--device`` (default ``cuda``).  Two
-engines are ported: the dense megakernel (``mega``) and the hybrid
-fused-bounce engine (``hybrid``); ``engine`` ``auto`` takes the megakernel up
-to ``MEGA_MAX_TRIS`` triangles and the hybrid past it.  On CUDA the hybrid
-first runs its pilot (``integrator.measure_schedule``) for the pool
-compaction caps, as ``tools/render.py`` does on its chip.  A config's
-``mesh`` renders single-device when one device is visible.  Every other
-engine and mode raises ``NotImplementedError`` naming its ROADMAP item.
+files (``<stem>.hdr/.png/.exr``), plus ``--device`` (default ``cuda``).  The
+engines are ``tools/render.py``'s: the dense megakernel (``mega``), the
+hybrid fused-bounce engine (``hybrid``), the cluster megakernel
+(``cluster-mega``) and, for every other engine name, the wavefront
+integrator (``integrator.render_batch``, threefry-keyed as ``mcpt`` keys
+it).  ``engine`` ``auto`` takes the megakernel up to ``MEGA_MAX_TRIS``
+triangles and the hybrid past it.  On CUDA the hybrid first runs its pilot
+(``integrator.measure_hybrid_schedule``) for the pool compaction caps.  The
+wavefront takes the config's ``intersector`` and re-sorts its pool between
+bounces with ``--resort on`` (``auto``: when the intersector resolves to
+``cluster``, i.e. a clustered scene on CUDA).  A config's ``mesh`` renders
+single-device when one device is visible.  ``testbvh``/``testall`` and a
+``mesh`` over several devices raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 Usage:
     python -m mcpt_torch.render_cli [--config PATH] [--configid N] [--spp N]
         [--out DIR] [--snapshot-every N] [--checkpoint-every N] [--resume]
-        [--device cuda|cpu]
+        [--resort auto|on|off] [--profile] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -28,10 +34,10 @@ import time
 
 import torch
 
-# mcpt engines not ported yet → their ROADMAP items (Queue 1)
+# mcpt modes not ported yet → their ROADMAP items (Queue 1)
 _NOT_PORTED = {
-    "cluster-mega": "Queue 1 item 10 (Slice 3: cluster-mega engine, kernel 3)",
-    "wavefront": "Queue 1 item 11 (Slice 3: wavefront integrator, kernel 4)",
+    "testbvh": "Queue 1 item 12 (Slice 4: the BVH quality harness)",
+    "mesh": "Queue 1 item 13 (Slice 5: sharded rendering)",
 }
 # engine "auto": the dense megakernel up to this many triangles, the hybrid
 # past it.  The H100's crossover, measured by `python3 chip_smoke.py
@@ -76,9 +82,9 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="resume from the checkpoint in --out")
     ap.add_argument("--resort", choices=["auto", "on", "off"], default="auto",
-                    help="inter-bounce ray re-sorting of the wavefront "
-                         "engine (not ported; the megakernel and the hybrid, "
-                         "which always re-sorts, ignore it)")
+                    help="inter-bounce ray re-sorting (Morton/octant) of the "
+                         "wavefront engine; auto = on when its intersector "
+                         "resolves to the cluster kernel")
     ap.add_argument("--profile", action="store_true",
                     help="per-stage timing report at exit (StageTimer); the "
                          "hybrid engine also prints a per-bounce "
@@ -89,7 +95,7 @@ def main(argv=None):
                          "plain PyTorch versions")
     args = ap.parse_args(argv)
 
-    from mcpt_torch import runtime
+    from mcpt_torch import rng, runtime
     from mcpt_torch.config import load_config
     from mcpt_torch.convert import load_checkpoint, save_checkpoint
     from mcpt_torch.io import image as im
@@ -97,20 +103,21 @@ def main(argv=None):
     from mcpt_torch.kernels import megakernel as mk
     from mcpt_torch.render import camera as camera_mod
     from mcpt_torch.render import integrator as integ
+    from mcpt_torch.render import traverse
     from mcpt_torch.types import make_framebuffer
 
     cfg = load_config(args.config, args.configid)
     if cfg.testall or cfg.testbvh:
         raise NotImplementedError(
             "testbvh/testall (the BVH quality harness) is not ported yet: "
-            "ROADMAP Queue 1 item 12 (Slice 4)")
+            f"ROADMAP {_NOT_PORTED['testbvh']}")
     device = torch.device(args.device)
     if cfg.mesh:
         n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
         if n_dev > 1:
             raise NotImplementedError(
                 f"config 'mesh' over {n_dev} devices (sharded rendering) is "
-                "not ported yet: ROADMAP Queue 1 item 13 (Slice 5)")
+                f"not ported yet: ROADMAP {_NOT_PORTED['mesh']}")
         print("config requests a device mesh but only one device is "
               "visible — rendering single-chip")
 
@@ -167,7 +174,7 @@ def main(argv=None):
         cms = cmk.build_cluster_megascene(scene, lights)
         if device.type == "cuda":
             # the pilot's unbiased pool compaction (tools/render.py:211-217)
-            step_kw["compact"] = integ.measure_schedule(cms, cam, opts)
+            step_kw["compact"] = integ.measure_hybrid_schedule(cms, cam, opts)
         print(f"hybrid: {cms.n_clusters} clusters, {cms.wnodes.shape[0]} "
               f"wide nodes | pilot caps {step_kw.get('compact')} | key mode "
               f"{cmk.resolve_key_mode('auto', step_kw.get('compact'))}")
@@ -175,10 +182,28 @@ def main(argv=None):
         def render_step(seed_step, step):
             return cmk.render_hybrid(cms, cam, width, height, spp=step,
                                      seed=seed_step, **step_kw)
+    elif engine == "cluster-mega":
+        cms = cmk.build_cluster_megascene(scene, lights)
+        print(f"cluster-mega: {cms.n_clusters} clusters, "
+              f"{cms.wnodes.shape[0]} wide nodes")
+
+        def render_step(seed_step, step):
+            return cmk.render_cluster_mega(cms, cam, width, height, spp=step,
+                                           seed=seed_step, **step_kw)
     else:
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet: ROADMAP "
-            f"{_NOT_PORTED.get(engine, _NOT_PORTED['wavefront'])}")
+        # every other engine name is the wavefront (tools/render.py:252-268)
+        method = traverse.resolve_method(scene, opts.method)
+        if args.resort == "on" or (args.resort == "auto"
+                                   and method == "cluster"):
+            opts = opts._replace(resort=True)
+        print(f"wavefront: intersector {method} | resort "
+              f"{'on' if opts.resort else 'off'}")
+        base_key = rng.key(cfg.seed)
+
+        def render_step(seed_step, step):
+            return integ.render_batch(scene, lights, cam, width, height,
+                                      rng.fold_in(base_key, seed_step), opts,
+                                      spp=step, with_stats=True)
 
     print(f"engine: {engine}")
     t0 = time.time()

@@ -1,9 +1,7 @@
 """Core structure-of-arrays types as NamedTuples of torch tensors.
 
 The port's counterpart of ``mcpt/types.py``: the same fields, shapes and
-dtypes, held as tensors on an explicit ``device``.  ``RayPool`` and ``Hit``
-belong to the wavefront engine and are ported with it (ROADMAP Queue 1,
-Slice 3).
+dtypes, held as tensors on an explicit ``device``.
 """
 
 from __future__ import annotations
@@ -111,6 +109,35 @@ class Camera(NamedTuple):
     half_height: torch.Tensor  # () tan(fov/2) pinhole; world half-height ortho
     half_width: torch.Tensor  # () half_height * aspect
     is_ortho: torch.Tensor  # () f32, 1.0 = orthographic
+
+
+class RayPool(NamedTuple):
+    """Wavefront ray state, one entry per path (``mcpt.types.RayPool``)."""
+
+    origin: torch.Tensor  # (R, 3) f32
+    direction: torch.Tensor  # (R, 3) f32 unit
+    throughput: torch.Tensor  # (R, 3) f32 — path weight so far
+    radiance: torch.Tensor  # (R, 3) f32 — accumulated radiance
+    pixel: torch.Tensor  # (R,) int32 — destination pixel id
+    alive: torch.Tensor  # (R,) bool
+    inside: torch.Tensor  # (R,) bool — inside a transparent medium
+
+    @property
+    def count(self) -> int:
+        return self.origin.shape[0]
+
+
+class Hit(NamedTuple):
+    """Closest-hit record (``mcpt.types.Hit``)."""
+
+    t: torch.Tensor  # (R,) f32 — inf on a miss
+    tri: torch.Tensor  # (R,) int32 — -1 on a miss
+    point: torch.Tensor  # (R, 3) f32
+    normal: torch.Tensor  # (R, 3) f32 — geometric, not flipped to face the ray
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self.tri >= 0
 
 
 class Framebuffer(NamedTuple):

@@ -1,4 +1,4 @@
-"""The port's CUDA megakernel on the card against its plain PyTorch version.
+"""The port's CUDA kernels on the card against their plain PyTorch versions.
 
 Marked ``gpu``: without a CUDA device every test here skips (the kernels have
 no CPU mode; their arithmetic is tested on the CPU through the plain version).
@@ -167,3 +167,125 @@ def test_fused_bounce_wrapper_refusals(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         cmk.fused_bounce(cms._replace(tri16=cms.tri16.cpu()), state, rid, 0,
                          0)
+
+
+# --------------------------------------------------------------------------
+# the cluster megakernel (csrc/cluster_mega.cu) and the wavefront's cluster
+# traversal (csrc/traverse.cu)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("schedule", ["regen", "batch"])
+def test_cluster_mega_matches_plain_version(cuda, schedule):
+    """Whole paths through the cluster walk on boxfield(60), NEE+MIS+RR:
+    the plain version's bits, one launch."""
+    cmk, cms, cam, _, _ = _hybrid_setup(cuda)
+    kw = dict(spp=3, seed=4, max_depth=4, nee=True, mis=True, rr=True,
+              rr_start=1, schedule=schedule)
+    before = cmk.CLUSTER_MEGA_LAUNCHES
+    a, sa = cmk.render_cluster_mega(cms, cam, 32, 24, **kw)
+    assert cmk.CLUSTER_MEGA_LAUNCHES == before + 1
+    b, sb = cmk.render_cluster_mega_reference(cms, cam, 32, 24, **kw)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(sa) == float(sb)
+
+
+def _random_rays(device, n=20000, seed=8):
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    o = r.uniform([-150, 0.5, -150], [150, 40, 150], (n, 3))
+    d = r.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    active = r.uniform(size=n) < 0.7
+    limit = r.uniform(1.0, 300.0, n)
+    t = (torch.from_numpy(o.astype("float32")).to(device),
+         torch.from_numpy(d.astype("float32")).to(device),
+         torch.from_numpy(active).to(device),
+         torch.from_numpy(limit.astype("float32")).to(device))
+    return t
+
+
+def test_traverse_matches_plain_version(cuda):
+    """Closest hit and any-hit of random rays, 30% inactive, with random
+    limits: equal t, row, normal and occlusion, one launch each."""
+    from mcpt_torch.kernels import traverse_kernel as tk
+
+    loaded, _ = scenes.boxfield(60)
+    scene, _ = build_scene(loaded, device=cuda)
+    cl = scene.clusters
+    o, d, active, limit = _random_rays(cuda)
+    before = tk.LAUNCHES
+    for any_hit in (False, True):
+        a = tk._traverse(cl, o, d, active, limit, any_hit, 1e-4)
+        b = tk.traverse_reference(cl, o, d, active, limit, any_hit, 1e-4)
+        for x, y in zip(a if not any_hit else (a,), b if not any_hit
+                        else (b,)):
+            assert torch.equal(x, y), any_hit
+    assert tk.LAUNCHES == before + 2
+    hit = tk.intersect_clusters(cl, o, d, active=active)
+    assert int((hit.tri >= 0).sum()) > 1000
+    assert (hit.tri[~active] == -1).all()
+
+
+def test_traverse_wrapper_refusals(cuda):
+    from mcpt_torch.kernels import traverse_kernel as tk
+
+    loaded, _ = scenes.boxfield(60)
+    scene, _ = build_scene(loaded, device=cuda)
+    cl = scene.clusters
+    o, d, active, limit = _random_rays(cuda, n=256)
+    with pytest.raises(ValueError, match="float32"):
+        tk._traverse_cuda(cl, o.double(), d, active, limit, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk._traverse_cuda(cl, o.t().contiguous().t(), d, active, limit,
+                          False)
+    with pytest.raises(ValueError, match="bool"):
+        tk._traverse_cuda(cl, o, d, active.int(), limit, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk._traverse_cuda(cl, o, d.cpu(), active, limit, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk._traverse_cuda(cl._replace(tri16=cl.tri16.cpu()), o, d, active,
+                          limit, False)
+
+
+def test_cluster_mega_wrapper_refusals(cuda):
+    cmk, cms, cam, _, _ = _hybrid_setup(cuda)
+    with pytest.raises(ValueError, match="float32"):
+        cmk.render_cluster_mega(cms._replace(tri16=cms.tri16.double()), cam,
+                                8, 8, spp=1, seed=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        cmk.render_cluster_mega(cms._replace(matt=cms.matt.cpu()), cam, 8, 8,
+                                spp=1, seed=0)
+    cpu_cam = cam._replace(position=cam.position.cpu())
+    with pytest.raises((ValueError, RuntimeError)):
+        cmk.render_cluster_mega(cms, cpu_cam, 8, 8, spp=1, seed=0)
+
+
+def test_wavefront_on_cuda_goes_through_the_kernel(cuda):
+    """A clustered scene on CUDA resolves to the cluster kernel: two
+    launches a bounce (closest hit and NEE shadow rays), and the plain
+    version's image."""
+    from mcpt_torch import rng
+    from mcpt_torch.kernels import traverse_kernel as tk
+    from mcpt_torch.render import integrator as integ
+    from mcpt_torch.render import traverse
+
+    loaded, camcfg = scenes.boxfield(60)
+    scene, lights = build_scene(loaded, device=cuda)
+    cam = make_camera(dataclasses.replace(camcfg, resolution=(32, 24)),
+                      device=cuda)
+    assert traverse.resolve_method(scene) == "cluster"
+    opts = integ.RenderOptions(max_depth=4, nee=True, mis=True,
+                               russian_roulette=True, rr_start_depth=1,
+                               resort=True)
+    before = tk.LAUNCHES
+    a, sa = integ.render_batch(scene, lights, cam, 32, 24, rng.key(2), opts,
+                               spp=2, with_stats=True)
+    assert tk.LAUNCHES == before + 2 * 4
+    with tk.plain_version_on_cuda():
+        b, sb = integ.render_batch(scene, lights, cam, 32, 24, rng.key(2),
+                                   opts, spp=2, with_stats=True)
+    assert tk.LAUNCHES == before + 2 * 4
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(sa) == float(sb)

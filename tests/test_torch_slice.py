@@ -120,11 +120,14 @@ def test_cli_writes_images(tmp_path, capsys):
 
 
 def test_cli_refuses_engines_not_ported(tmp_path):
+    """``cluster-mega`` is ported: on quad_light_plane (4 triangles, no
+    cluster BVH) it is the ValueError of ``build_cluster_megascene``, as for
+    the hybrid.  The BVH harness (``testbvh``) is not ported yet."""
     path = tmp_path / "c.json"
     path.write_text(json.dumps({"config": [{
         "objname": "procedural:quad_light_plane", "width": 8, "height": 8,
         "engine": "cluster-mega"}]}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Slice 3"):
+    with pytest.raises(ValueError, match="no cluster BVH"):
         _cli(str(path), tmp_path / "o")
     with pytest.raises(NotImplementedError, match="testbvh"):
         _cli(os.path.join(ROOT, "config.json"), tmp_path / "o",
@@ -142,15 +145,15 @@ def test_cli_hybrid_needs_clusters(tmp_path):
         _cli(str(path), tmp_path / "o")
 
 
-def _cli_config(tmp_path, configid, *extra):
-    """render_cli on a config.json entry at a tiny size on the CPU → its
-    standard output; checks the three images."""
+def _cli_config(tmp_path, configid, *extra, config=None):
+    """render_cli on a config.json entry (or on ``config``) at a tiny size
+    on the CPU → its standard output; checks the three images."""
     import contextlib
     import io
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        assert _cli(os.path.join(ROOT, "config.json"), tmp_path,
+        assert _cli(config or os.path.join(ROOT, "config.json"), tmp_path,
                     "--configid", str(configid), *extra) == 0
     text = out.getvalue()
     stem = text.split("wrote ")[1].split(".hdr")[0]
@@ -166,6 +169,25 @@ def test_cli_large_config_takes_the_hybrid(tmp_path):
                             "--spp", "4")
     assert "108004 tris" in text and "engine: hybrid" in text
     assert "pilot caps None" in text  # the pilot runs on CUDA only
+    assert img.shape == (6, 8, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.0
+
+
+@pytest.mark.parametrize("engine", ["cluster-mega", "wavefront"])
+def test_cli_config7_through_the_new_engines(tmp_path, engine):
+    """Config 7 (boxfield, 108,004 tris, depth 8, NEE+MIS+RR, 4 spp a step)
+    at 8×6 through the plain versions, its entry copied with ``engine`` set
+    (config.json stays as it is).  On the CPU the wavefront's ``auto``
+    intersector is the BVH walk and the resort stays off."""
+    from mcpt_torch.config import write_config_variant
+
+    config = write_config_variant(os.path.join(ROOT, "config.json"), 7,
+                                  str(tmp_path / "c7.json"), engine=engine)
+    text, img = _cli_config(tmp_path, 0, "--width", "8", "--height", "6",
+                            "--spp", "4", config=config)
+    assert "108004 tris" in text and f"engine: {engine}" in text
+    if engine == "wavefront":
+        assert "wavefront: intersector bvh | resort off" in text
     assert img.shape == (6, 8, 3) and np.isfinite(img).all()
     assert img.mean() > 0.0
 
