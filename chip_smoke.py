@@ -47,6 +47,16 @@ larger of the bytes it must move over 3.35 TB/s and the float operations of
 the boxes and rows its walks test (counted by the plain versions) over 67
 TFLOP/s.
 
+Phases, FP32 peak probe (kernel 5) and the BVH quality harness: 17 kernel
+5's ptxas report and SASS (one FFMA a step), kernel vs plain version on 2
+blocks of 512 steps, one block of the full 8192 and the full array, its
+time, then ``runtime.measure_fp32_peak`` with ``nvidia-smi`` (SM clock, power) sampled beside it, 18 ``treeletGPU``
+on the card vs the CPU on boxfield() and diningroom(), timed, LCV on the
+card vs the CPU (config 4), the PyTorch EPO walk on the card vs the host
+walk (boxfield(400)), 19 main path: ``render_cli`` on configs 4 (testbvh)
+and 5 (testall, treeletGPU) and config 7 with ``bvhtype`` treeletGPU at 4
+spp through ``auto``.
+
 ``python3 chip_smoke.py --crossover`` instead times the two engines through
 their kernels on boxfield(n) at 724-6004 triangles (the ``auto`` engine's
 crossover); ``--fmad-ab`` the dense kernel built with ``-fmad=false`` and
@@ -381,6 +391,7 @@ def run() -> dict:
     report["card"] = card
     report["hybrid"] = run_hybrid(card)
     report.update(run_slice3(card))
+    report.update(run_slice4(card))
     return report
 
 
@@ -924,6 +935,313 @@ def run_slice3(card) -> dict:
     return out
 
 
+def sass_counts(lib_path, key: str) -> dict:
+    """{function: {FFMA, FMUL, FADD, reuse: count}} of the kernel functions
+    whose mangled name holds ``key``, from ``cuobjdump -sass`` of
+    ``lib_path`` (``reuse``: FFMAs that read an operand from the reuse
+    cache); None when the toolkit has no cuobjdump."""
+    from pathlib import Path
+
+    from mcpt_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        if key in name:
+            out[name] = {op: len(re.findall(rf"\b{op}\b", chunk))
+                         for op in ("FFMA", "FMUL", "FADD")}
+            out[name]["reuse"] = len(re.findall(r"\bFFMA\b[^;]*\.reuse",
+                                                chunk))
+    return out
+
+
+def ulps(a, b) -> int:
+    """max |a - b| in float32 ulps (finite values of one sign)."""
+    import torch
+
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+def smi_sampler():
+    """``nvidia-smi`` sampling name, power limit, SM clock and power draw
+    every 100 ms into a pipe until it is stopped."""
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+         "--format=csv,noheader", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def stop_sampler(proc) -> list:
+    proc.terminate()
+    try:
+        out, _ = proc.communicate(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def run_slice4(card) -> dict:
+    """Phases 17-19: kernel 5 (the FP32 peak probe) and the BVH quality
+    harness (treeletGPU, EPO, LCV, testbvh/testall)."""
+    import numpy as np
+    import torch
+
+    from mcpt_torch import bvh_bench, render_cli, runtime, scenes
+    from mcpt_torch.bvh import lbvh, metrics, treelet_device
+    from mcpt_torch.config import load_config, write_config_variant
+    from mcpt_torch.io import image as im
+    from mcpt_torch.kernels import _build
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+    from mcpt_torch.kernels import fma_peak as fp
+    from mcpt_torch.kernels import megakernel as mk
+    from mcpt_torch.render import camera as camera_mod
+    from mcpt_torch.types import BVH
+
+    dev = torch.device("cuda")
+    out = {}
+
+    t_phase = time.perf_counter()
+    phase(17, "kernel 5: the FP32 peak probe (ptxas, SASS, kernel vs plain "
+              "version, measure_fp32_peak)")
+    _build.load()  # built in phase 2
+    rep = ptxas_report(_build.library_path().with_suffix(".log").read_text())
+    for name, (regs, stack, st, ld) in rep.items():
+        if "fma_peak_kernel" in name:
+            print(f"{name}: {regs} registers, {stack} B stack, {st} B spill "
+                  f"stores, {ld} B spill loads")
+    counts = sass_counts(_build.library_path(), "fma_peak_kernel")
+    if counts is None:
+        print("cuobjdump not at hand: SASS not read")
+    elif not counts:
+        raise AssertionError("fma_peak_kernel not found in the SASS")
+    else:
+        # four independent chains a thread (csrc/fma_peak.cu kChains)
+        steps = fp.UNROLL * 4
+        for name, c in counts.items():
+            print(f"{name} SASS: {c['FFMA']} FFMA ({c['reuse']} with a "
+                  f"reused operand), {c['FMUL']} FMUL, {c['FADD']} FADD (one "
+                  f"FFMA a step: {steps} a loop iteration; a and b: 2 FMUL, "
+                  f"2 FADD)")
+            if c["FFMA"] < steps or c["FFMA"] % steps \
+                    or c["FMUL"] + c["FADD"] > 4:
+                raise AssertionError(f"{name}: not one FFMA per step")
+    max_abs5 = 0.0
+    gen = torch.Generator().manual_seed(17)
+    for n_blocks, loops in ((2, 2), (1, fp.LOOPS)):
+        x = (torch.rand((n_blocks * fp.SUB, fp.COLS), generator=gen)
+             + 0.5).to(dev)
+        b = fp.fma_chain_reference(x, loops=loops)
+        a = fp.fma_chain(x, loops=loops)
+        u = ulps(a, b)
+        diff = float((a - b).abs().max())
+        print(f"  {n_blocks} block(s), LOOPS={loops} "
+              f"({fp.UNROLL * loops} steps): max |a-b| {diff:.3e}, {u} ulp "
+              f"(gate 2)")
+        if u > 2:
+            raise AssertionError("kernel 5 disagrees with its plain version")
+        max_abs5 = max(max_abs5, diff)
+    x = torch.ones((fp.GRID * fp.SUB, fp.COLS), dtype=torch.float32,
+                   device=dev)
+    flops = fp.flops(x.shape[0])
+    fp.fma_chain(x)  # warm-up
+    ms5, _ = cuda_ms(lambda: fp.fma_chain(x), 5)
+    print(f"  full size: {ms5:.3f} ms a call, {flops / ms5 / 1e9:.2f} "
+          f"TFLOP/s | {card}")
+    plain5, b = cuda_ms(lambda: fp.fma_chain_reference(x))
+    a = fp.fma_chain(x)
+    u = ulps(a, b)
+    max_abs5 = max(max_abs5, float((a - b).abs().max()))
+    print(f"  full size (131072x128, 8192 steps): kernel vs plain version "
+          f"{u} ulp; plain version {plain5:.1f} ms")
+    if u > 2 or not torch.isfinite(a).all():
+        raise AssertionError("kernel 5 disagrees with its plain version at "
+                             "full size")
+    before = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    sampler = smi_sampler()
+    try:
+        time.sleep(0.5)
+        # a sustained window of ~4 s under the sampler, then the probe
+        reps = 1000
+        sustained, _ = cuda_ms(lambda: fp.fma_chain(x), reps)
+        fp.LAUNCHES = 0
+        rate = runtime.measure_fp32_peak()
+        launches5 = fp.LAUNCHES
+    finally:
+        samples = stop_sampler(sampler)
+    print(f"  nvidia-smi before (name, power limit, SM clock, power draw): "
+          f"{before}")
+    print(f"  nvidia-smi beside the window ({len(samples)} samples every "
+          f"100 ms): " + " | ".join(samples[::4]))
+    clocks = [int(x) for x in re.findall(r"(\d+) MHz", " ".join(samples))]
+    watts = [float(x) for x in re.findall(r"([\d.]+) W(?:,|$)",
+                                          " ".join(s.split(",")[-1] + ","
+                                                   for s in samples))]
+    print(f"  beside the window: SM clock {min(clocks, default=0)}-"
+          f"{max(clocks, default=0)} MHz (1980 MHz is the H100 SXM boost), "
+          f"power draw {min(watts, default=0):.1f}-"
+          f"{max(watts, default=0):.1f} W")
+    print(f"  sustained {reps} calls: {sustained:.3f} ms a call, "
+          f"{flops / sustained / 1e9:.2f} TFLOP/s")
+    print(f"  measure_fp32_peak(): {rate / 1e12:.2f} TFLOP/s, "
+          f"{rate / H100_F32_FLOPS:.1%} of the published 67 TFLOP/s; "
+          f"{launches5} launches (a warm-up and 3 timed) | {card}")
+    if launches5 != 4 or not 0.2 * H100_F32_FLOPS < rate < 1.5 * H100_F32_FLOPS:
+        raise AssertionError("measure_fp32_peak did not time the kernel")
+    t_bytes = 2 * nbytes(x) / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    out["k5"] = dict(ms=ms5, plain_ms=plain5, max_abs_err=max_abs5,
+                     bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     launches=launches5)
+    del x, a, b
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    phase(18, "the BVH harness on the card: treeletGPU, LCV and the EPO "
+              "walk against the CPU")
+    for name in ("boxfield", "diningroom"):
+        loaded, _ = getattr(scenes, name)()
+        bvh0 = lbvh.build_lbvh(torch.from_numpy(loaded.verts))
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            a = treelet_device.optimize_treelets_device(bvh0.to(dev))
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        b = treelet_device.optimize_treelets_device(bvh0)
+        t_cpu = time.perf_counter() - t0
+        equal = all(torch.equal(getattr(a, f).cpu(), getattr(b, f))
+                    for f in BVH._fields)
+        print(f"  {name} ({bvh0.n_tris} tris): treeletGPU on the card "
+              f"{times[0]:.3f} s (first call) / {times[1]:.3f} s, on the CPU "
+              f"{t_cpu:.3f} s; tables equal {equal}; SAH {metrics.sah(bvh0):.4f}"
+              f" -> {metrics.sah(a):.4f} | {card}")
+        if not equal:
+            raise AssertionError(f"treeletGPU on the card differs from the "
+                                 f"CPU on {name}")
+    cfg4 = load_config(os.path.join(ROOT, "config.json"), 4)
+    loaded, _ = scenes.cornell_box()
+    bvh4 = lbvh.build_lbvh(torch.from_numpy(loaded.verts))
+    t0 = time.perf_counter()
+    on_card = metrics.lcv(bvh4, camera_mod.make_camera(cfg4.camera,
+                                                       device=dev),
+                          cfg4.width, cfg4.height)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = metrics.lcv(bvh4, camera_mod.make_camera(cfg4.camera,
+                                                      device="cpu"),
+                         cfg4.width, cfg4.height)
+    t_cpu = time.perf_counter() - t0
+    print(f"  LCV, config 4 ({cfg4.width}x{cfg4.height}): card {on_card!r} "
+          f"({t_card:.3f} s), CPU {on_cpu!r} ({t_cpu:.3f} s)")
+    if on_card != on_cpu:
+        raise AssertionError("LCV on the card differs from the CPU")
+    loaded, _ = scenes.boxfield(400)
+    bvh = lbvh.build_lbvh(torch.from_numpy(loaded.verts))
+    t0 = time.perf_counter()
+    host = metrics.epo(bvh, loaded.verts)
+    t_host = time.perf_counter() - t0
+    metrics.epo(bvh, loaded.verts, use_native="never", device=dev)  # warm
+    t0 = time.perf_counter()
+    walk = metrics.epo(bvh, loaded.verts, use_native="never", device=dev)
+    t_walk = time.perf_counter() - t0
+    rel = abs(walk - host) / max(host, 1.0)
+    print(f"  EPO, boxfield(400) ({bvh.n_tris} tris): host walk {host!r} "
+          f"({t_host:.3f} s), PyTorch walk on the card {walk!r} "
+          f"({t_walk:.3f} s), relative difference {rel:.2e} (gate 1e-6)")
+    if not rel <= 1e-6:
+        raise AssertionError("the EPO walk on the card disagrees with the "
+                             "host walk")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    phase(19, "main path: render_cli on configs 4 and 5 (the harness), and "
+              "config 7 with treeletGPU through auto (4 spp)")
+    texts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cid in (4, 5):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = render_cli.main(["--config", os.path.join(
+                    ROOT, "config.json"), "--configid", str(cid), "--out",
+                    tmp, "--device", "cuda"])
+            wall = time.perf_counter() - t0
+            text = buf.getvalue()
+            print(text.strip())
+            models = text.count("model: ")
+            values = [float(v) for v in re.findall(
+                r"(?:SAH|EPO|LCV): ([-\d.]+)", text)]
+            print(f"config {cid}: {models} model(s), wall {wall:.2f} s | "
+                  f"{card}")
+            names = load_config(os.path.join(ROOT, "config.json"),
+                                cid).objnames
+            if rc != 0 or models != len(names) or \
+                    len(values) != 3 * models or \
+                    not all(np.isfinite(values)):
+                raise AssertionError(f"config {cid}: the harness did not "
+                                     "print SAH, EPO and LCV for every model")
+            texts[cid] = text
+        ref = io.StringIO()
+        with contextlib.redirect_stdout(ref):
+            bvh_bench.run_from_config(cfg4, "cpu")
+        card_lines = metric_lines(texts[4])
+        cpu_lines = metric_lines(ref.getvalue())
+        print(f"config 4 on the CPU: {cpu_lines}")
+        if card_lines != cpu_lines:
+            raise AssertionError("config 4's metrics on the card differ "
+                                 "from the CPU's")
+
+        cfg_path = write_config_variant(os.path.join(ROOT, "config.json"), 7,
+                                        os.path.join(tmp, "c7_treelet.json"),
+                                        bvhtype="treeletGPU")
+        buf = io.StringIO()
+        cmk.LAUNCHES = mk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = render_cli.main(["--config", cfg_path, "--configid", "0",
+                                  "--out", tmp, "--device", "cuda", "--spp",
+                                  "4"])
+        wall = time.perf_counter() - t0
+        launches2, launches1 = cmk.LAUNCHES, mk.LAUNCHES
+        text = buf.getvalue()
+        print(text.strip())
+        stem = re.search(r"wrote (\S+)\.hdr", text).group(1)
+        img = im.read_exr_rgb(os.path.join(tmp, f"{stem}.exr"))
+        # one 4-spp step and the pilot's render, 8 bounces each
+        print(f"config 7 with treeletGPU: fused-bounce launches {launches2} "
+              f"(expected 16), dense-kernel launches {launches1}, image mean "
+              f"{img.mean():.4f}, wall {wall:.2f} s | {card}")
+        if rc != 0 or "bvh=treeletGPU" not in text or \
+                "treeletGPU build time" not in text or \
+                "engine: hybrid" not in text or launches2 != 16 or \
+                launches1 != 0 or not np.isfinite(img).all() or \
+                not img.mean() > 0.0:
+            raise AssertionError("config 7 with treeletGPU did not render "
+                                 "through the hybrid")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def metric_lines(text) -> list:
+    """The harness's triangle, SAH, EPO (without its wall time) and LCV
+    lines."""
+    return [line.strip().split("  (")[0] for line in text.splitlines()
+            if line.strip().startswith(("triangles:", "SAH:", "EPO:",
+                                        "LCV:"))]
+
+
 def device_activity(prof):
     """From a ``torch.profiler`` trace: (µs during which the card ran
     something — the union of its kernel, copy and set intervals —, {name:
@@ -1159,6 +1477,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(ROOT, "mcpt_torch")):
+        # run alone, without the program beside it
+        print(f"chip_smoke: no mcpt_torch/ beside {__file__}; run it from "
+              "the root of a checkout", file=sys.stderr)
+        return 1
     sys.path.insert(0, ROOT)
     try:
         if args.fmad_ab:
@@ -1193,8 +1516,11 @@ def main(argv=None) -> int:
         dict(name="traverse", source="mcpt_torch/csrc/traverse.cu",
              replaces="mcpt/pallas/traverse_kernel.py:333",
              launches=report["launches4"], **report["k4"]),
+        # launches: measure_fp32_peak's (the render path launches none)
+        dict(name="fma_peak", source="mcpt_torch/csrc/fma_peak.cu",
+             replaces="mcpt/runtime.py:184", **report["k5"]),
     ]
-    # no single PyTorch call computes a path or a closest hit
+    # no single PyTorch call computes a path, a closest hit or an FMA chain
     print(json.dumps({"kernels": [dict(k, route="cuda", library_ms=None)
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -27,15 +27,15 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mcpt_torch"
 SOURCES = ("megakernel.cu", "fused_bounce.cu", "cluster_mega.cu",
-           "traverse.cu")
+           "traverse.cu", "fma_peak.cu")
 # -fmad=false: no contracted multiply-adds, so the kernels round as the plain
 # PyTorch versions do (see csrc/bounce_core.cuh); no fast math either
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_SOURCES = ("host/treelet.cpp",)
-# mcpt/native/Makefile's code-generation flags: the treelet optimiser must
-# round as mcpt's native build does to give the same topology
-HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17")
+HOST_SOURCES = ("host/treelet.cpp", "host/epo.cpp")
+# mcpt/native/Makefile's flags: the treelet optimiser and the EPO walk must
+# round as mcpt's native build does to give the same topology and the same sum
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-pthread")
 
 
 def nvcc_path() -> str:
@@ -56,8 +56,8 @@ def gxx_path() -> str:
     found = shutil.which(os.environ.get("CXX") or "g++")
     if not found:
         raise FileNotFoundError("g++ not found (set CXX or put g++ on "
-                                "PATH); the host treelet optimiser is built "
-                                "from source")
+                                "PATH); the host library (treelet "
+                                "optimiser, EPO walk) is built from source")
     return found
 
 
@@ -87,10 +87,12 @@ def _run(cmd) -> str:
     return proc.stdout + proc.stderr
 
 
-def _compile(compiler: str, flags, sources, lib: Path) -> Path:
+def _compile(compiler: str, flags, sources, lib: Path,
+             link_flags=()) -> Path:
     """Unless ``lib`` exists: compile every source to an object with
     ``compiler flags -c``, all at once (one process each), then link them
-    into ``lib``.  The compilers' reports land beside it as ``.log``."""
+    into ``lib`` with ``link_flags``.  The compilers' reports land beside it
+    as ``.log``."""
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -103,7 +105,8 @@ def _compile(compiler: str, flags, sources, lib: Path) -> Path:
                 [compiler, *flags, "-c", "-o", obj, str(SRC_DIR / src)]
                 for src, obj in zip(sources, objs)]))
         so = str(Path(tmp) / lib.name)
-        logs.append(_run([compiler, "-shared", "-o", so, *objs]))
+        logs.append(_run([compiler, "-shared", *link_flags, "-o", so,
+                          *objs]))
         lib.with_suffix(".log").write_text("".join(logs))
         os.replace(so, lib)
     return lib
@@ -118,12 +121,16 @@ def build(flags: tuple[str, ...] = NVCC_FLAGS) -> Path:
 
 @functools.lru_cache(maxsize=None)
 def load_host() -> ctypes.CDLL:
-    """Build if needed and load the host library (the treelet optimiser)."""
+    """Build if needed and load the host library (the treelet optimiser and
+    the EPO walk)."""
     lib = ctypes.CDLL(str(_compile(gxx_path(), HOST_FLAGS, HOST_SOURCES,
-                                   host_library_path())))
-    ptr = ctypes.c_void_p
-    lib.mcpt_treelet_optimize.argtypes = [ctypes.c_int] + [ptr] * 5
+                                   host_library_path(),
+                                   link_flags=("-pthread",))))
+    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.mcpt_treelet_optimize.argtypes = [i32] + [ptr] * 5
     lib.mcpt_treelet_optimize.restype = None
+    lib.mcpt_epo.argtypes = [ptr, i32] + [ptr] * 4 + [f64, f64, i32]
+    lib.mcpt_epo.restype = f64
     return lib
 
 
@@ -151,6 +158,8 @@ def load(flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
         [ptr] * 2 + [i32] * 2 + [ptr] * 4 + [f32] + [i32] + [ptr] * 4
         + [i32] + [ptr, ptr])
     lib.mcpt_traverse.restype = i32
+    lib.mcpt_fma_chain.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.mcpt_fma_chain.restype = i32
     lib.mcpt_tables_in_smem.argtypes = [i32] * 4
     lib.mcpt_tables_in_smem.restype = i32
     lib.mcpt_error_string.argtypes = [i32]

@@ -24,9 +24,10 @@ from mcpt_torch.types import Camera, RayPool
 
 
 def make_camera(cfg: CameraConfig, ortho_height: float | None = None,
-                device="cpu") -> Camera:
+                device="cuda") -> Camera:
     """Build the orthonormal camera basis on the host, in float32 numpy as
-    ``mcpt`` does, and place it on ``device``.
+    ``mcpt`` does, and place it on ``device`` (by default the card, where
+    ``mcpt``'s lands on the accelerator; CPU callers pass ``"cpu"``).
 
     ``cfg.ortho_height > 0`` (or the explicit kwarg) selects the orthographic
     camera; otherwise a pinhole with ``fov`` degrees vertical — ``fov <= 0``

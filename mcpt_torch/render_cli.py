@@ -13,9 +13,10 @@ triangles and the hybrid past it.  On CUDA the hybrid first runs its pilot
 wavefront takes the config's ``intersector`` and re-sorts its pool between
 bounces with ``--resort on`` (``auto``: when the intersector resolves to
 ``cluster``, i.e. a clustered scene on CUDA).  A config's ``mesh`` renders
-single-device when one device is visible.  ``testbvh``/``testall`` and a
-``mesh`` over several devices raise ``NotImplementedError`` naming their
-ROADMAP item.
+single-device when one device is visible; a ``mesh`` over several devices
+raises ``NotImplementedError`` naming its ROADMAP item.  A ``testbvh`` or
+``testall`` entry runs the BVH quality harness (``mcpt_torch.bvh_bench``)
+on ``--device``, as ``tools/render.py:82-91`` does.
 
 Usage:
     python -m mcpt_torch.render_cli [--config PATH] [--configid N] [--spp N]
@@ -36,7 +37,6 @@ import torch
 
 # mcpt modes not ported yet → their ROADMAP items (Queue 1)
 _NOT_PORTED = {
-    "testbvh": "Queue 1 item 12 (Slice 4: the BVH quality harness)",
     "mesh": "Queue 1 item 13 (Slice 5: sharded rendering)",
 }
 # engine "auto": the dense megakernel up to this many triangles, the hybrid
@@ -108,9 +108,10 @@ def main(argv=None):
 
     cfg = load_config(args.config, args.configid)
     if cfg.testall or cfg.testbvh:
-        raise NotImplementedError(
-            "testbvh/testall (the BVH quality harness) is not ported yet: "
-            f"ROADMAP {_NOT_PORTED['testbvh']}")
+        # mode dispatch parity with main.cpp:12-19
+        from mcpt_torch import bvh_bench
+
+        return bvh_bench.run_from_config(cfg, args.device)
     device = torch.device(args.device)
     if cfg.mesh:
         n_dev = torch.cuda.device_count() if device.type == "cuda" else 1

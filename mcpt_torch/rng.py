@@ -15,7 +15,7 @@ counters (``jax_threefry_partitionable``, on by default since JAX 0.5):
 uint32 arithmetic is held in int64 tensors masked to 32 bits: torch's ``>>``
 on int32 is arithmetic, so no signed 32-bit value is ever shifted.  A key
 lives on the host as two Python ints (``Key``); the bits come out on any
-device.
+device, by default the card, as ``jax.random``'s land on the accelerator.
 """
 
 from __future__ import annotations
@@ -88,7 +88,7 @@ def split(k: Key, n: int = 2) -> list[Key]:
     return [Key(int(x), int(y)) for x, y in zip(a.tolist(), b.tolist())]
 
 
-def bits(k: Key, shape, device="cpu") -> torch.Tensor:
+def bits(k: Key, shape, device="cuda") -> torch.Tensor:
     """32 random bits per element (``jax.random.bits(k, shape)``), held in
     int64."""
     n = 1
@@ -99,7 +99,7 @@ def bits(k: Key, shape, device="cpu") -> torch.Tensor:
     return (a ^ b).reshape(shape)
 
 
-def uniform(k: Key, shape, device="cpu") -> torch.Tensor:
+def uniform(k: Key, shape, device="cuda") -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32)`` in [0, 1)."""
     mant = (bits(k, shape, device) >> 9) | 0x3F800000
     return mant.to(torch.int32).view(torch.float32) - 1.0

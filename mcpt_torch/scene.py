@@ -90,8 +90,10 @@ def build_wald(verts: np.ndarray, device) -> WaldTris:
 
 
 def build_scene(loaded: LoadedObject, bvhtype: str = "hlbvh",
-                device="cpu"):
-    """LoadedObject → (Scene, Lights) on ``device`` (``mcpt/scene.py:94``).
+                device="cuda"):
+    """LoadedObject → (Scene, Lights) on ``device`` (``mcpt/scene.py:94``),
+    by default the card, where ``mcpt``'s arrays land on the accelerator;
+    CPU callers pass ``device="cpu"``.
 
     Builds the Wald transforms, normals, material ids, the light table,
     ``eps = max(1e-4·diag, 1e-6)``, the LBVH of every scene (on CPU tensors,
@@ -101,25 +103,25 @@ def build_scene(loaded: LoadedObject, bvhtype: str = "hlbvh",
     treelet-optimised copy of the LBVH.
 
     ``bvhtype``: ``hlbvh``/``lbvh``/``""`` keep the LBVH, ``treelet`` (or
-    ``treelet_opt``) restructures it with the C++ treelet optimiser;
-    ``treeletGPU`` needs the batched device optimiser, which is not ported.
+    ``treelet_opt``) restructures it with the C++ treelet optimiser,
+    ``treeletGPU`` with the batched treelet DP on ``device``
+    (``bvh.treelet_device``, ``mcpt/scene.py:122-127``).
     """
     from mcpt_torch.bvh import cluster as cluster_mod
     from mcpt_torch.bvh import lbvh as lbvh_mod
     from mcpt_torch.bvh import treelet as treelet_mod
+    from mcpt_torch.bvh import treelet_device
 
     if bvhtype not in _BVHTYPES:
         raise ValueError(f"unknown bvhtype {bvhtype!r}")
-    if bvhtype == "treeletGPU":
-        raise NotImplementedError(
-            "bvhtype 'treeletGPU' (mcpt.bvh.treelet_device, the batched "
-            "treelet DP) is not ported yet: ROADMAP Queue 1 item 12 "
-            "(Slice 4)")
     geom, mats = loaded.to_device(device)
     verts = np.asarray(loaded.verts, np.float32).reshape(-1, 3, 3)
     bvh = lbvh_mod.build_lbvh(torch.from_numpy(verts))
     if bvhtype in ("treelet", "treelet_opt"):
         bvh = treelet_mod.optimize_treelets(bvh)
+    elif bvhtype == "treeletGPU":
+        bvh = treelet_device.optimize_treelets_device(bvh.to(device),
+                                                      verbose=True)
     lights = build_lights(loaded.verts, loaded.mat_id, loaded.mtype,
                           loaded.ka, device)
     v = loaded.verts.reshape(-1, 3)

@@ -158,6 +158,13 @@ def test_collapse_wide_rejects_a_too_deep_tree():
 
 
 def test_treelet_gpu_bvhtype_names_its_slice():
-    loaded, _ = tscenes.cornell_box()
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        tbuild_scene(loaded, bvhtype="treeletGPU")
+    """``build_scene(bvhtype="treeletGPU")`` restructures the LBVH with the
+    batched optimiser (``mcpt``'s ``tests/test_treelet_device.py:48-55``):
+    its SAH is no worse than the LBVH's and the tree is valid."""
+    loaded, _ = tscenes.boxfield(60)
+    scene_g, _ = tbuild_scene(loaded, bvhtype="treeletGPU", device="cpu")
+    scene_0, _ = tbuild_scene(loaded, bvhtype="hlbvh", device="cpu")
+    assert tmetrics.sah(scene_g.bvh) <= tmetrics.sah(scene_0.bvh) + 1e-3
+    assert tmetrics.sah(scene_g.bvh) < 0.9 * tmetrics.sah(scene_0.bvh)
+    assert tlbvh.validate_bvh(scene_g.bvh, loaded.verts)["ok"]
+    assert scene_g.clusters is not None

@@ -60,7 +60,8 @@ def boxfield60():
 
 
 def _pool(camcfg, w, h, seed):
-    cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(w, h)))
+    cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(w, h)),
+                              device="cpu")
     return tcamera.generate_rays(cam, w, h, key=rng.key(seed))
 
 
@@ -142,7 +143,8 @@ def test_traversal_matches_mcpt_kernel(boxfield60):
 def test_plain_versions_never_count_launches(boxfield60):
     scene, lights, camcfg, _, _ = boxfield60
     cms = cmk.build_cluster_megascene(scene, lights)
-    cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(4, 4)))
+    cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(4, 4)),
+                              device="cpu")
     before = (tk.LAUNCHES, cmk.CLUSTER_MEGA_LAUNCHES, cmk.LAUNCHES)
     cmk.render_cluster_mega(cms, cam, 4, 4, spp=1, seed=0, max_depth=2)
     pool = _pool(camcfg, 4, 4, 0)
@@ -157,7 +159,8 @@ def test_cluster_mega_equals_dense_and_hybrid_streams(boxfield60, schedule):
     pixel) streams and resolve the same hits: the same bits.  (A regen lane
     sums its samples' radiance in another order than batch does.)"""
     scene, lights, camcfg, _, _ = boxfield60
-    cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(24, 16)))
+    cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(24, 16)),
+                              device="cpu")
     cms = cmk.build_cluster_megascene(scene, lights)
     kw = dict(spp=2, seed=11, max_depth=4, nee=True, mis=True, rr=True,
               rr_start=1)
@@ -198,7 +201,8 @@ def test_render_cluster_mega_matches_mcpt(tmp_path, boxfield60):
     kw = dict(spp=2, seed=5, max_depth=3, nee=True, mis=True, rr=True,
               rr_start=1, schedule="regen")
     want = jax_child(tmp_path, _JAX_CLUSTER_MEGA, w=16, h=16, kw=kw)
-    cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(16, 16)))
+    cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(16, 16)),
+                              device="cpu")
     got, segs = cmk.render_cluster_mega(
         cmk.build_cluster_megascene(scene, lights), cam, 16, 16, **kw)
     assert math.isfinite(float(segs)) and float(got.mean()) > 0.0

@@ -289,3 +289,79 @@ def test_wavefront_on_cuda_goes_through_the_kernel(cuda):
     assert tk.LAUNCHES == before + 2 * 4
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert float(sa) == float(sb)
+
+
+# --------------------------------------------------------------------------
+# the FP32 peak probe (csrc/fma_peak.cu) and the BVH quality harness
+# --------------------------------------------------------------------------
+
+
+def _ulps(a, b):
+    """|a - b| in float32 ulps (both finite and of one sign)."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+def test_fma_chain_matches_plain_version(cuda):
+    """2 blocks, LOOPS = 2: one launch, within 2 ulp of the plain version
+    (the float64 emulation of a fused multiply-add; bit-equal expected)."""
+    from mcpt_torch.kernels import fma_peak as fp
+
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.rand((2 * fp.SUB, fp.COLS), generator=gen) + 0.5).to(cuda)
+    before = fp.LAUNCHES
+    a = fp.fma_chain(x, loops=2)
+    assert fp.LAUNCHES == before + 1
+    b = fp.fma_chain_reference(x, loops=2)
+    assert _ulps(a, b) <= 2
+
+
+def test_measure_fp32_peak_launches_the_kernel(cuda):
+    from mcpt_torch import runtime
+    from mcpt_torch.kernels import fma_peak as fp
+
+    before = fp.LAUNCHES
+    rate = runtime.measure_fp32_peak(repeats=2)
+    assert fp.LAUNCHES == before + 3  # a warm-up and two timed calls
+    assert 1e12 < rate < 1e14
+
+
+def test_fma_chain_refusals(cuda):
+    from mcpt_torch.kernels import fma_peak as fp
+
+    before = fp.LAUNCHES
+    with pytest.raises(ValueError, match="contiguous"):
+        fp.fma_chain(torch.ones((fp.COLS, fp.SUB), device=cuda).t())
+    with pytest.raises(ValueError, match="float32"):
+        fp.fma_chain(torch.ones((fp.SUB, fp.COLS), dtype=torch.float16,
+                                device=cuda))
+    assert fp.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_boxes", [60, 400])
+def test_treelet_gpu_on_cuda_equals_cpu(cuda, n_boxes):
+    from mcpt_torch.bvh import lbvh, treelet_device
+    from mcpt_torch.types import BVH
+
+    loaded, _ = scenes.boxfield(n_boxes)
+    bvh0 = lbvh.build_lbvh(torch.from_numpy(loaded.verts))
+    a = treelet_device.optimize_treelets_device(bvh0.to(cuda))
+    b = treelet_device.optimize_treelets_device(bvh0)
+    for name in BVH._fields:
+        assert getattr(a, name).device.type == "cuda"
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+
+
+def test_lcv_and_epo_on_cuda(cuda):
+    """LCV on the card equals LCV on the CPU; the PyTorch EPO walk on the
+    card is within 1e-6 relative of the host walk."""
+    from mcpt_torch.bvh import lbvh, metrics
+
+    loaded, camcfg = scenes.boxfield(60)
+    bvh = lbvh.build_lbvh(torch.from_numpy(loaded.verts))
+    on_card = metrics.lcv(bvh, make_camera(camcfg, device=cuda), 64, 48)
+    on_cpu = metrics.lcv(bvh, make_camera(camcfg, device="cpu"), 64, 48)
+    assert on_card == on_cpu
+    host = metrics.epo(bvh, loaded.verts)
+    walk = metrics.epo(bvh, loaded.verts, use_native="never", device=cuda)
+    assert abs(walk - host) <= 1e-6 * max(host, 1.0)

@@ -139,7 +139,8 @@ def test_make_camera_equal(name, ortho):
         assert getattr(t, f).dtype == torch.float32, f
         _eq(getattr(t, f), getattr(j, f))
     with pytest.raises(ValueError):
-        tcamera.make_camera(dataclasses.replace(tc, fov=0.0))
+        tcamera.make_camera(dataclasses.replace(tc, fov=0.0),
+                            device="cpu")
 
 
 def test_image_writers_byte_equal(tmp_path):
@@ -230,7 +231,8 @@ def test_dispatcher_contracts():
     tl, tc = tscenes.quad_light_plane()
     scene, lights = t_build_scene(tl, device="cpu")
     mega = tmk.build_megascene(scene, lights)
-    cam = tcamera.make_camera(dataclasses.replace(tc, resolution=(4, 4)))
+    cam = tcamera.make_camera(dataclasses.replace(tc, resolution=(4, 4)),
+                              device="cpu")
     a = tmk.render_mega(mega, cam, 4, 4, spp=2, seed=1, nee=True, mis=True)
     b = tmk.render_mega_reference(mega, cam, 4, 4, spp=2, seed=1, nee=True,
                                   mis=True)
@@ -246,3 +248,26 @@ def test_dispatcher_contracts():
     assert _build.library_path().parent == _build.BUILD_DIR
     assert _build.BUILD_DIR.parts[-2:] == ("build", "mcpt_torch")
     assert len(_build.source_hash()) == 16
+
+
+@pytest.mark.parametrize("builder", ["build_scene", "make_camera", "bits",
+                                     "uniform"])
+def test_builders_default_to_the_card(builder):
+    """``build_scene``, ``make_camera``, ``rng.bits`` and ``rng.uniform``
+    place their results on the card unless the caller names another device,
+    as ``mcpt``'s land on the accelerator: with a CUDA device they give CUDA
+    tensors; without one they raise instead of handing back CPU tensors."""
+    from mcpt_torch import rng
+
+    loaded, camcfg = tscenes.quad_light_plane()
+    call = {
+        "build_scene": lambda: t_build_scene(loaded)[0].geom.verts,
+        "make_camera": lambda: tcamera.make_camera(camcfg).position,
+        "bits": lambda: rng.bits(rng.key(1), (4,)),
+        "uniform": lambda: rng.uniform(rng.key(1), (4,)),
+    }[builder]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()

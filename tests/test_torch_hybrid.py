@@ -152,7 +152,8 @@ def test_fused_bounce_passes_dead_lanes_through(boxfield60):
     """A lane with alive == 0 keeps every plane and traces 0 segments; the
     plain version never counts a kernel launch."""
     cms, camcfg = boxfield60
-    cam = make_camera(dataclasses.replace(camcfg, resolution=(16, 8)))
+    cam = make_camera(dataclasses.replace(camcfg, resolution=(16, 8)),
+                      device="cpu")
     state, rid = cmk.camera_pool(cms, cam, 16, 8, 1, seed=5, n_pool=4096)
     state[cmk.ALIVE, ::3] = 0.0
     before = state.clone()
@@ -204,7 +205,8 @@ def test_render_hybrid_matches_mcpt(tmp_path, boxfield60, w, h, kw):
 
 def test_profile_hybrid_gives_render_hybrids_bits(boxfield60):
     cms, camcfg = boxfield60
-    cam = make_camera(dataclasses.replace(camcfg, resolution=(64, 64)))
+    cam = make_camera(dataclasses.replace(camcfg, resolution=(64, 64)),
+                      device="cpu")
     kw = dict(spp=2, seed=1, max_depth=3, nee=True, mis=True, rr=True,
               rr_start=1, compact=(0.3, 0.2))
     a, sa = cmk.render_hybrid(cms, cam, 64, 64, **kw)

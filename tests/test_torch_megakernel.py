@@ -98,7 +98,8 @@ def torch_render_mega(scene, w, h, scene_kw=None, lift=None, **kw):
     camcfg = dataclasses.replace(camcfg, resolution=(w, h))
     sc, lights = build_scene(loaded, device="cpu")
     rad, segs = mk.render_mega_reference(mk.build_megascene(sc, lights),
-                                         make_camera(camcfg), w, h, **kw)
+                                         make_camera(camcfg, device="cpu"),
+                                         w, h, **kw)
     return rad.numpy(), float(segs)
 
 

@@ -37,7 +37,7 @@ def test_threefry_equals_jax_random(seed, case):
         shape = {"uniform_n": (1000,), "uniform_n2": (999, 2),
                  "uniform_n3": (1000, 3), "uniform_n6": (333, 6)}[case]
         want = np.asarray(jax.random.uniform(jf, shape, jnp.float32))
-        got = rng.uniform(tf, shape)
+        got = rng.uniform(tf, shape, "cpu")
         assert got.dtype == torch.float32 and tuple(got.shape) == shape
         np.testing.assert_array_equal(got.numpy(), want)
     else:

@@ -67,7 +67,8 @@ def _torch_pipeline(configid, width, height, spp):
     cfg = load_config(os.path.join(ROOT, "config.json"), configid)
     scene, lights, cam_cfg = render_cli.build_from_config(cfg, "cpu")
     cam = tcamera.make_camera(
-        dataclasses.replace(cam_cfg, resolution=(width, height)))
+        dataclasses.replace(cam_cfg, resolution=(width, height)),
+        device="cpu")
     mega = tmk.build_megascene(scene, lights)
     fb, segs = make_framebuffer(width * height, "cpu"), 0.0
     for done in range(spp):
@@ -119,19 +120,95 @@ def test_cli_writes_images(tmp_path, capsys):
     assert img.mean() > 0.0
 
 
-def test_cli_refuses_engines_not_ported(tmp_path):
+_JAX_BVH_BENCH = r"""
+import contextlib, functools, io, json, sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+from mcpt import scenes
+from mcpt.config import load_config
+from tools import bvh_bench
+a = json.loads(sys.argv[1])
+scenes.boxfield = functools.partial(scenes.boxfield, a["boxfield"])
+texts = []
+for path, cid in a["runs"]:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bvh_bench.run_from_config(load_config(path, cid))
+    texts.append(out.getvalue())
+np.savez(a["out"], texts=np.array(texts))
+"""
+
+
+def _testall_config(tmp_path):
+    """Config 5's testall entry (treeletGPU) on cornell_box, furnace_sphere
+    and boxfield (made boxfield(60) by the caller), LCV at 48×32."""
+    path = tmp_path / "testall.json"
+    path.write_text(json.dumps({"config": [{
+        "testall": True, "bvhtype": "treeletGPU", "width": 48, "height": 32,
+        "objname": ["procedural:cornell_box", "procedural:furnace_sphere",
+                    "procedural:boxfield"]}]}))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def mcpt_bvh_bench(tmp_path_factory):
+    """``tools/bvh_bench.py``'s output on config 4 and on the testall
+    variant, in the child without FMA (treeletGPU's DP ties, see
+    ``test_torch_treelet_device``)."""
+    tmp = tmp_path_factory.mktemp("bvh_bench")
+    runs = [[os.path.join(ROOT, "config.json"), 4], [_testall_config(tmp), 0]]
+    return list(jax_child(tmp, _JAX_BVH_BENCH, runs=runs,
+                          boxfield=60)["texts"])
+
+
+def _metric_lines(text):
+    return [line.strip() for line in text.splitlines()
+            if line.strip().startswith(("model:", "triangles:", "SAH:",
+                                        "EPO:", "LCV:"))]
+
+
+def _epo_free(lines):
+    """The EPO lines without their wall time."""
+    return [line.split("  (")[0] for line in lines]
+
+
+def test_cli_refuses_engines_not_ported(tmp_path, capsys, mcpt_bvh_bench):
     """``cluster-mega`` is ported: on quad_light_plane (4 triangles, no
     cluster BVH) it is the ValueError of ``build_cluster_megascene``, as for
-    the hybrid.  The BVH harness (``testbvh``) is not ported yet."""
+    the hybrid.  The BVH harness is ported too: config 4 (``testbvh``,
+    cornell_box, ``treelet``) through the CLI on the CPU prints ``mcpt``'s
+    SAH, EPO and LCV to the 4 decimals both print."""
     path = tmp_path / "c.json"
     path.write_text(json.dumps({"config": [{
         "objname": "procedural:quad_light_plane", "width": 8, "height": 8,
         "engine": "cluster-mega"}]}))
     with pytest.raises(ValueError, match="no cluster BVH"):
         _cli(str(path), tmp_path / "o")
-    with pytest.raises(NotImplementedError, match="testbvh"):
-        _cli(os.path.join(ROOT, "config.json"), tmp_path / "o",
-             "--configid", "4")
+    capsys.readouterr()
+    assert _cli(os.path.join(ROOT, "config.json"), tmp_path / "o",
+                "--configid", "4") == 0
+    got = _epo_free(_metric_lines(capsys.readouterr().out))
+    want = _epo_free(_metric_lines(mcpt_bvh_bench[0]))
+    assert got == want and len(got) == 5, (got, want)
+    assert got[-1].startswith("LCV: ") and "skipped" not in got[-1]
+
+
+def test_cli_testall_small_variant(tmp_path, capsys, monkeypatch,
+                                   mcpt_bvh_bench):
+    """A testall entry with treeletGPU over three scenes (boxfield(60) for
+    the 108k-triangle boxfield) on the CPU: per scene the triangles, the
+    treeletGPU build, and ``mcpt``'s SAH, EPO and LCV."""
+    import functools
+
+    monkeypatch.setattr(tscenes, "boxfield",
+                        functools.partial(tscenes.boxfield, 60))
+    assert _cli(_testall_config(tmp_path), tmp_path / "o") == 0
+    text = capsys.readouterr().out
+    assert text.count("treeletGPU build time: ") == 3
+    got = _epo_free(_metric_lines(text))
+    want = _epo_free(_metric_lines(mcpt_bvh_bench[1]))
+    assert got == want and len(got) == 15, (got, want)
 
 
 def test_cli_hybrid_needs_clusters(tmp_path):
@@ -235,7 +312,8 @@ def test_furnace_identity_plain_version():
                                             subdiv=2)
     scene, lights = build_scene(loaded, device="cpu")
     cam = tcamera.make_camera(dataclasses.replace(camcfg,
-                                                  resolution=(16, 16)))
+                                                  resolution=(16, 16)),
+                              device="cpu")
     mega = tmk.build_megascene(scene, lights)
     assert mega.n_tris == 640  # the chunked tier
     rad, segs = tmk.render_mega(mega, cam, 16, 16, spp=8, seed=0,
@@ -256,7 +334,8 @@ def test_golden_gates_plain_version(name, w, h, spp, depth, tol):
                                           f"{name}.exr"))[::-1]
     loaded, camcfg = getattr(tscenes, name)()
     scene, lights = build_scene(loaded, device="cpu")
-    cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(w, h)))
+    cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(w, h)),
+                              device="cpu")
     rad, _ = tmk.render_mega(tmk.build_megascene(scene, lights), cam, w, h,
                              spp=spp, seed=5, max_depth=depth, nee=True,
                              mis=True)

@@ -139,7 +139,8 @@ def cbox():
 
     jloaded, _ = jscenes.cornell_box()
     jscene, _ = jbuild_scene(jloaded)
-    return scene, lights, tcamera.make_camera(camcfg), jscene, camcfg
+    cam = tcamera.make_camera(camcfg, device="cpu")
+    return scene, lights, cam, jscene, camcfg
 
 
 def test_generate_rays_match_mcpt(cbox):
@@ -224,7 +225,8 @@ def torch_render_batch(scene_name, w, h, seed, spp, opts, scene_kw=None):
     opts = dict(opts, compact=(tuple(opts["compact"]) if opts.get("compact")
                                else None))
     rad, segs = tinteg.render_batch(
-        scene, lights, tcamera.make_camera(camcfg), w, h, rng.key(seed),
+        scene, lights, tcamera.make_camera(camcfg, device="cpu"), w, h,
+        rng.key(seed),
         tinteg.RenderOptions(**opts), spp=spp, with_stats=True)
     return rad.numpy(), float(segs)
 
@@ -256,7 +258,7 @@ def furnace():
     loaded, camcfg = tscenes.furnace_sphere(albedo=0.5, emission=1.0,
                                             subdiv=2)
     scene, lights = build_scene(loaded, device="cpu")
-    return scene, lights, tcamera.make_camera(camcfg)
+    return scene, lights, tcamera.make_camera(camcfg, device="cpu")
 
 
 @pytest.mark.parametrize("resort", [False, True])
@@ -301,7 +303,7 @@ def test_pilot_schedule_equals_mcpt():
     loaded, camcfg = tscenes.boxfield(60)
     scene, lights = build_scene(loaded, device="cpu")
     got = tinteg.measure_schedule(scene, lights,
-                                  tcamera.make_camera(camcfg),
+                                  tcamera.make_camera(camcfg, device="cpu"),
                                   tinteg.RenderOptions(**opts), 32, 32, seed=3)
     jloaded, jcamcfg = jscenes.boxfield(60)
     jscene, jlights = jbuild_scene(jloaded)
