@@ -57,12 +57,21 @@ walk (boxfield(400)), 19 main path: ``render_cli`` on configs 4 (testbvh)
 and 5 (testall, treeletGPU) and config 7 with ``bvhtype`` treeletGPU at 4
 spp through ``auto``.
 
+Phases 11, 13 and 14 also print each walking kernel's ptxas report, its
+stack (entries and shared memory a block), its resident blocks an SM, its
+tables' padding share, and its bound twice: from the live rows the walks
+test, and from every row of the clusters they visit (the count before the
+walks skipped padding).
+
 ``python3 chip_smoke.py --crossover`` instead times the two engines through
 their kernels on boxfield(n) at 724-6004 triangles (the ``auto`` engine's
 crossover); ``--fmad-ab`` the dense kernel built with ``-fmad=false`` and
 ``-fmad=true``; ``--engine-ab`` the three large-scene engines on configs 7
-and 8 at 64 spp with a ``torch.profiler`` window each.  The last two lines
-of standard output are the kernel report and the result, each one JSON
+and 8 at 64 spp with a ``torch.profiler`` window each; ``--kernel-ab TREE
+[TREE ...]`` kernels 1-4 against those of other checkouts (each turn a
+process on one checkout's own package), in turns, at the main path's
+shapes.  The last two lines of
+standard output are the kernel report and the result, each one JSON
 object.
 """
 
@@ -431,6 +440,7 @@ def run_hybrid(card) -> dict:
     import torch
 
     from mcpt_torch import render_cli
+    from mcpt_torch.bvh.cluster import stack_entries
     from mcpt_torch.io import image as im
     from mcpt_torch.kernels import _build
     from mcpt_torch.kernels import cluster_megakernel as cmk
@@ -438,6 +448,7 @@ def run_hybrid(card) -> dict:
 
     dev = torch.device("cuda")
     out = {}
+    lib = _build.load()
 
     phase(7, "build report (hybrid): fused-bounce kernel")
     # both libraries were built in phase 2 (each CUDA source by its own nvcc)
@@ -546,6 +557,9 @@ def run_hybrid(card) -> dict:
               "timed (CUDA events)")
     saved = cmk.LAUNCHES
     cms, cam, w, h, kw = config_hybrid_step(8, dev)
+    print(walk_report(cms, "fused_bounce_kernel",
+                      lib.mcpt_fused_bounce_blocks_per_sm(
+                          stack_entries(cms.wide_depth))))
     n_rays = w * h * kw["spp"]
     n_pool = -(-n_rays // cmk.BLKT) * cmk.BLKT
     state, rid = cmk.camera_pool(cms, cam, w, h, kw["spp"], kw["seed"],
@@ -569,7 +583,7 @@ def run_hybrid(card) -> dict:
         # seconds, so it runs once per depth
         timed(cmk.fused_bounce)
         kern_a, _, _ = timed(cmk.fused_bounce)
-        cmk.WALK_WORK.update(boxes=0, rows=0)
+        cmk.WALK_WORK.update(boxes=0, rows=0, all_rows=0)
         plain, b, sb = timed(cmk.fused_bounce_reference)
         work = dict(cmk.WALK_WORK)
         kern_b, a, sa = timed(cmk.fused_bounce)
@@ -588,11 +602,14 @@ def run_hybrid(card) -> dict:
         if not same:
             raise AssertionError(f"depth {depth}: kernel disagrees with the "
                                  "plain version at the main path's pool")
-        b_ms, b_by = bound(nbytes(cms.wnodes, cms.tri16, cms.matt, cms.lit,
-                                  rid) + 2 * nbytes(state) + 4 * n_pool,
-                           work["boxes"], work["rows"])
+        moved = (nbytes(cms.wnodes, cms.tri16, cms.live, cms.matt, cms.lit,
+                        rid) + 2 * nbytes(state) + 4 * n_pool)
+        b_ms, b_by = bound(moved, work["boxes"], work["rows"])
+        b_all, _ = bound(moved, work["boxes"], work["all_rows"])
         print(f"  depth {depth}: {work['boxes']} boxes and {work['rows']} "
-              f"rows tested -> bound {b_ms:.4f} ms ({b_by})")
+              f"live rows tested -> bound {b_ms:.4f} ms ({b_by}); counting "
+              f"every row of the visited clusters ({work['all_rows']}, the "
+              f"count before the walk skipped padding): {b_all:.4f} ms")
         times[depth] = (ms, plain_ms, b_ms, b_by)
         # the next depth starts from the kernel's output, re-sorted as the
         # pipeline sorts it
@@ -604,6 +621,28 @@ def run_hybrid(card) -> dict:
     out["ms"], out["plain_ms"], out["bound_ms"], out["bound_by"] = times[0]
     out["max_abs_err"] = max_abs
     return out
+
+
+def walk_report(tables, kernel: str, blocks_per_sm: int,
+                threads: int = 128) -> str:
+    """One line on a walking kernel of ``threads`` a block at a scene's
+    tables: ptxas's registers, stack and spills, the stack a thread gets
+    (entries, shared memory a block) and the resident blocks an SM."""
+    from mcpt_torch.bvh.cluster import stack_entries
+    from mcpt_torch.kernels import _build
+
+    rep = ptxas_report(_build.library_path().with_suffix(".log").read_text())
+    regs, stack, st, ld = next(v for k, v in rep.items() if kernel in k)
+    cap = stack_entries(tables.wide_depth)
+    live = tables.live.sum().item()
+    return (f"  {kernel}: {regs} registers, {stack} B stack frame, {st} B "
+            f"spill stores, {ld} B spill loads; wide depth "
+            f"{tables.wide_depth} -> stack of {cap} 32-bit entries a thread "
+            f"({4 * cap * threads} B of shared memory a {threads}-thread "
+            f"block); {blocks_per_sm} resident blocks an SM "
+            f"({blocks_per_sm * threads // 32} warps); {live} live rows of "
+            f"{tables.tri16.shape[0]} ({1 - live / tables.tri16.shape[0]:.1%}"
+            f" padding)")
 
 
 def ptxas_report(log: str) -> dict:
@@ -634,6 +673,65 @@ def cuda_ms(fn, reps=1):
     return start.elapsed_time(end) / reps, out
 
 
+def wavefront_pools(dev):
+    """Kernel 4's inputs at config 8's own size: the wavefront's primary
+    pool of its first step (tiled pixels, one camera key a sample) and the
+    depth-1 pool shaded and re-sorted from it, each with a random 85% of
+    its rays active and random limits up to the scene's diagonal (seed 14)
+    → (cluster tables, [(depth, origin, direction, active, limit)])."""
+    import torch
+
+    from mcpt_torch import rng
+    from mcpt_torch.render import camera as camera_mod
+    from mcpt_torch.render import integrator as integ
+    from mcpt_torch.render import shade as shade_mod
+    from mcpt_torch.render import traverse
+    from mcpt_torch.types import RayPool
+
+    cfg, scene, _, cam, w, h = config_scene(8, dev)
+    spp = max(1, cfg.spp_per_step)
+    opts = integ.RenderOptions(
+        max_depth=cfg.maxdepth, nee=cfg.integrator.nee,
+        mis=cfg.integrator.mis,
+        russian_roulette=cfg.integrator.russian_roulette,
+        rr_start_depth=cfg.integrator.rr_start_depth, resort=True)
+    if traverse.resolve_method(scene) != "cluster":
+        raise AssertionError("config 8 on CUDA must resolve to the cluster "
+                             "kernel")
+    # render_batch's first step: tiled pixels, one camera key per sample
+    key = rng.fold_in(rng.key(cfg.seed), cfg.seed)
+    perm, _ = camera_mod.tile_order(w, h, block=integ.BLKT)
+    pix = torch.from_numpy(perm).to(dev)
+    pools = [camera_mod.generate_rays_for_pixels(cam, w, h, pix,
+                                                 key=rng.split(k)[0])
+             for k in rng.split(key, spp)]
+    pool0 = RayPool(*(torch.cat(xs) for xs in zip(*pools)))
+    del pools
+    _, _, ks_ = integ._bounce_keys(key, 0)
+    hit = traverse.intersect_scene(scene, pool0.origin, pool0.direction,
+                                   active=pool0.alive)
+    res = shade_mod.shade(scene.materials, scene.geom.mat_id, pool0, hit,
+                          ks_, 0, opts.max_depth,
+                          rr_enabled=opts.russian_roulette,
+                          rr_start_depth=opts.rr_start_depth, eps=scene.eps)
+    bb_lo, inv_ext = integ._scene_box(scene)
+    pool1 = integ._resort_pool(res.pool, res.scatter, res.bsdf_pdf,
+                               torch.arange(pool0.count, device=dev), bb_lo,
+                               inv_ext)[0]
+    n_rays = pool0.count
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    diag = float((scene.geom.verts.reshape(-1, 3).amax(0)
+                  - scene.geom.verts.reshape(-1, 3).amin(0)).norm())
+    rays = []
+    for depth, pool in ((0, pool0), (1, pool1)):
+        active = (pool.alive.cpu() & (torch.rand(n_rays, generator=gen)
+                                      < 0.85)).to(dev)
+        limit = (torch.rand(n_rays, generator=gen) * diag).to(dev)
+        rays.append((depth, pool.origin.contiguous(),
+                     pool.direction.contiguous(), active, limit))
+    return scene.clusters, rays
+
+
 def run_slice3(card) -> dict:
     """Phases 12-16: the cluster megakernel (kernel 3) and the wavefront
     engine's cluster traversal (kernel 4)."""
@@ -641,23 +739,22 @@ def run_slice3(card) -> dict:
     import torch
 
     from mcpt_torch import render_cli, rng
+    from mcpt_torch.bvh.cluster import stack_entries
     from mcpt_torch.config import write_config_variant
     from mcpt_torch.io import image as im
     from mcpt_torch.kernels import _build
     from mcpt_torch.kernels import cluster_megakernel as cmk
     from mcpt_torch.kernels import megakernel as mk
     from mcpt_torch.kernels import traverse_kernel as tk
-    from mcpt_torch.render import camera as camera_mod
     from mcpt_torch.render import integrator as integ
-    from mcpt_torch.render import shade as shade_mod
     from mcpt_torch.render import traverse
-    from mcpt_torch.types import RayPool
 
     dev = torch.device("cuda")
     out = {}
 
     t_phase = time.perf_counter()
     phase(12, "build report: ptxas per kernel")
+    lib = _build.load()
     rep = ptxas_report(_build.library_path().with_suffix(".log").read_text())
     for key, label in (("render_mega_kernel", "kernel 1 render_mega_kernel"),
                        ("fused_bounce_kernel", "kernel 2 fused_bounce_kernel"),
@@ -694,11 +791,15 @@ def run_slice3(card) -> dict:
     cfg, scene, lights, cam, w, h = config_scene(7, dev)
     cms = cmk.build_cluster_megascene(scene, lights)
     kw3 = step_kwargs(cfg)
+    print(walk_report(cms, "render_cluster_kernel",
+                      lib.mcpt_render_cluster_blocks_per_sm(
+                          stack_entries(cms.wide_depth), cms.matt.shape[0],
+                          cms.lit.shape[0]), threads=256))
     saved = cmk.CLUSTER_MEGA_LAUNCHES
     cmk.render_cluster_mega(cms, cam, w, h, **kw3)  # warm-up
     kern_a, (a, sa) = cuda_ms(lambda: cmk.render_cluster_mega(cms, cam, w, h,
                                                               **kw3), 3)
-    cmk.WALK_WORK.update(boxes=0, rows=0)
+    cmk.WALK_WORK.update(boxes=0, rows=0, all_rows=0)
     plain, (b, sb) = cuda_ms(lambda: cmk.render_cluster_mega_reference(
         cms, cam, w, h, **kw3))
     work = dict(cmk.WALK_WORK)
@@ -709,13 +810,16 @@ def run_slice3(card) -> dict:
         f"config 7 {w}x{h} {kw3['spp']} spp (regen)", a.cpu().numpy(),
         float(sa), b.cpu().numpy(), float(sb), w * h))
     ms3 = (kern_a + kern_b) / 2
-    b_ms, b_by = bound(nbytes(cms.wnodes, cms.tri16, cms.matt, cms.lit)
-                       + 19 * 4 + 4 * w * h + 16 * w * h, work["boxes"],
-                       work["rows"])
+    moved = (nbytes(cms.wnodes, cms.tri16, cms.live, cms.matt, cms.lit)
+             + 19 * 4 + 4 * w * h + 16 * w * h)
+    b_ms, b_by = bound(moved, work["boxes"], work["rows"])
+    b_all, _ = bound(moved, work["boxes"], work["all_rows"])
     print(f"  config 7 step: kernel {kern_a:.3f} / {kern_b:.3f} ms, plain "
           f"{plain:.1f} ms; {float(sa):.0f} segments ({float(sa) / ms3 / 1e3:.1f}"
-          f" Mrays/s kernel); {work['boxes']} boxes and {work['rows']} rows "
-          f"tested -> bound {b_ms:.4f} ms ({b_by}) | {card}")
+          f" Mrays/s kernel); {work['boxes']} boxes and {work['rows']} live "
+          f"rows tested -> bound {b_ms:.4f} ms ({b_by}); counting every row "
+          f"of the visited clusters ({work['all_rows']}): {b_all:.4f} ms | "
+          f"{card}")
     out["k3"] = dict(ms=ms3, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                      max_abs_err=max_abs3)
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
@@ -723,58 +827,25 @@ def run_slice3(card) -> dict:
     t_phase = time.perf_counter()
     phase(14, "kernel 4 vs its plain version at config 8's own pools "
               "(primary and depth-1 rays of its first step), timed")
-    cfg, scene, lights, cam, w, h = config_scene(8, dev)
-    spp = max(1, cfg.spp_per_step)
-    cl = scene.clusters
-    opts = integ.RenderOptions(
-        max_depth=cfg.maxdepth, nee=cfg.integrator.nee,
-        mis=cfg.integrator.mis,
-        russian_roulette=cfg.integrator.russian_roulette,
-        rr_start_depth=cfg.integrator.rr_start_depth, resort=True)
-    if traverse.resolve_method(scene) != "cluster":
-        raise AssertionError("config 8 on CUDA must resolve to the cluster "
-                             "kernel")
-    # render_batch's first step: tiled pixels, one camera key per sample
-    key = rng.fold_in(rng.key(cfg.seed), cfg.seed)
-    perm, _ = camera_mod.tile_order(w, h, block=integ.BLKT)
-    pix = torch.from_numpy(perm).to(dev)
-    pools = [camera_mod.generate_rays_for_pixels(cam, w, h, pix,
-                                                 key=rng.split(k)[0])
-             for k in rng.split(key, spp)]
-    pool0 = RayPool(*(torch.cat(xs) for xs in zip(*pools)))
-    del pools
     saved = tk.LAUNCHES
-    _, _, ks_ = integ._bounce_keys(key, 0)
-    hit = traverse.intersect_scene(scene, pool0.origin, pool0.direction,
-                                   active=pool0.alive)
-    res = shade_mod.shade(scene.materials, scene.geom.mat_id, pool0, hit,
-                          ks_, 0, opts.max_depth,
-                          rr_enabled=opts.russian_roulette,
-                          rr_start_depth=opts.rr_start_depth, eps=scene.eps)
-    bb_lo, inv_ext = integ._scene_box(scene)
-    pool1 = integ._resort_pool(res.pool, res.scatter, res.bsdf_pdf,
-                               torch.arange(pool0.count, device=dev), bb_lo,
-                               inv_ext)[0]
-    n_rays = pool0.count
-    gen = torch.Generator(device="cpu").manual_seed(14)
-    diag = float((scene.geom.verts.reshape(-1, 3).amax(0)
-                  - scene.geom.verts.reshape(-1, 3).amin(0)).norm())
+    cl, rays = wavefront_pools(dev)
+    n_rays = rays[0][1].shape[0]
+    for any_hit in (0, 1):
+        print(walk_report(cl, f"traverse_kernelILb{any_hit}",
+                          lib.mcpt_traverse_blocks_per_sm(
+                              any_hit, stack_entries(cl.wide_depth))))
     k4 = {}
     max_abs4 = 0.0
-    for depth, pool in ((0, pool0), (1, pool1)):
-        active = (pool.alive.cpu() & (torch.rand(n_rays, generator=gen)
-                                      < 0.85)).to(dev)
-        limit = (torch.rand(n_rays, generator=gen) * diag).to(dev)
-        o, d = pool.origin.contiguous(), pool.direction.contiguous()
+    for depth, o, d, active, limit in rays:
         for any_hit in (False, True):
             lim = limit if any_hit else torch.full_like(limit, 3.0e38)
             args = (cl, o, d, active, lim, any_hit, 1e-4)
             tk._traverse_cuda(*args)  # warm-up
-            kern_a, a = cuda_ms(lambda: tk._traverse_cuda(*args), 3)
-            cmk.WALK_WORK.update(boxes=0, rows=0)
+            kern_a, a = cuda_ms(lambda: tk._traverse_cuda(*args), 10)
+            cmk.WALK_WORK.update(boxes=0, rows=0, all_rows=0)
             plain, b = cuda_ms(lambda: tk.traverse_reference(*args))
             work = dict(cmk.WALK_WORK)
-            kern_b, a = cuda_ms(lambda: tk._traverse_cuda(*args), 3)
+            kern_b, a = cuda_ms(lambda: tk._traverse_cuda(*args), 10)
             pairs = [(a, b)] if any_hit else list(zip(a, b))
             same = all(torch.equal(x, y) for x, y in pairs)
             if not any_hit:
@@ -784,15 +855,19 @@ def run_slice3(card) -> dict:
                     else 0.0)
             ms = (kern_a + kern_b) / 2
             out_bytes = n_rays if any_hit else 20 * n_rays
-            b_ms, b_by = bound(nbytes(cl.wnodes, cl.tri16, o, d, active, lim)
-                               + out_bytes, work["boxes"], work["rows"])
+            moved = (nbytes(cl.wnodes, cl.tri16, cl.live, o, d, active, lim)
+                     + out_bytes)
+            b_ms, b_by = bound(moved, work["boxes"], work["rows"])
+            b_all, _ = bound(moved, work["boxes"], work["all_rows"])
             what = "any hit" if any_hit else "closest hit"
             n_act = int(active.sum())
             print(f"  depth {depth} {what}: {n_act} of {n_rays} rays active; "
                   f"equal {same}; kernel {kern_a:.3f} / {kern_b:.3f} ms, "
                   f"plain {plain:.1f} ms; {work['boxes']} boxes, "
-                  f"{work['rows']} rows -> bound {b_ms:.4f} ms ({b_by}); "
-                  f"{n_act / ms / 1e3:.1f} Mrays/s kernel | {card}")
+                  f"{work['rows']} live rows -> bound {b_ms:.4f} ms ({b_by}); "
+                  f"every row of the visited clusters ({work['all_rows']}): "
+                  f"{b_all:.4f} ms; {n_act / ms / 1e3:.1f} Mrays/s kernel | "
+                  f"{card}")
             if not same:
                 raise AssertionError(f"kernel 4 disagrees with the plain "
                                      f"version (depth {depth}, {what})")
@@ -800,7 +875,7 @@ def run_slice3(card) -> dict:
                                         bound_by=b_by)
     tk.LAUNCHES = saved  # comparison launches
     out["k4"] = dict(k4[(0, False)], max_abs_err=max_abs4)
-    del pool0, pool1, res, hit
+    del rays
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
     t_phase = time.perf_counter()
@@ -1324,6 +1399,11 @@ def engine_ab(spp: int = 64, step: int = 4, prof_steps: int = 2) -> None:
                   f"{segs:.0f} segments); profiler: device busy "
                   f"{busy_us / 1e6 / window:.1%} of {window * 1e3:.2f} ms "
                   f"over {prof_steps} steps | {card}")
+            h2d = [(us, n) for key, (us, n) in by_name.items()
+                   if "HtoD" in key]
+            print(f"    host-to-device copies in the window: "
+                  f"{sum(u for u, _ in h2d) / 1e3:.3f} ms, "
+                  f"{sum(n for _, n in h2d)} copies")
             ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
             # the top six, and the port's own kernels wherever they rank
             for i, (key, (us, count)) in enumerate(ranked):
@@ -1454,6 +1534,155 @@ def fmad_ab(reps: int = 10) -> None:
         print(f"  config {cid}: -fmad=true takes {gain:.1%} less time")
 
 
+def kernel_ab_turn(reps: int = 10) -> dict:
+    """One turn of ``--kernel-ab``, run by ``kernel_ab`` in a process of its
+    own on the ``mcpt_torch`` of one checkout: that checkout's own sources,
+    build and wrappers, called through the entry points a user calls, at the
+    main path's shapes.  Kernel 3 at config 7's 4-spp regen step, kernel 2
+    at config 8's 3,686,400-ray pools of depths 0 and 1, kernel 4 on phase
+    14's pools (``wavefront_pools``: closest hit, and any hit at random
+    limits), kernel 1 at configs 0 and 6's steps.  Each workload: a warm-up
+    call, then ``reps`` calls (kernel 2 on a fresh copy of its pool each)
+    under ``torch.profiler``; its time is the device time of the kernel's
+    own launches, so the wrappers' host work does not count → {workload:
+    {"ms": ms a call, "sha256": digest of the last call's outputs}}."""
+    import hashlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+    from mcpt_torch.kernels import megakernel as mk
+    from mcpt_torch.kernels import traverse_kernel as tk
+
+    dev = torch.device("cuda")
+    cfg, scene, lights, cam, w, h = config_scene(7, dev)
+    cms7 = cmk.build_cluster_megascene(scene, lights)
+    kw7 = step_kwargs(cfg)
+    cms8, cam8, w8, h8, kw8 = config_hybrid_step(8, dev)
+    bkw = {k: kw8[k] for k in ("max_depth", "rr", "rr_start", "nee", "mis",
+                               "clamp")}
+    n_pool = -(-(w8 * h8 * kw8["spp"]) // cmk.BLKT) * cmk.BLKT
+    state0, rid0 = cmk.camera_pool(cms8, cam8, w8, h8, kw8["spp"],
+                                   kw8["seed"], n_pool)
+    s1 = state0.clone()
+    cmk.fused_bounce(cms8, s1, rid0, kw8["seed"], 0, **bkw)
+    key = cmk._hybrid_sort_key(*s1[:6], s1[cmk.ALIVE], cms8.bb_lo,
+                               cms8.bb_inv_ext,
+                               cmk.resolve_key_mode("auto", kw8["compact"]))
+    order1 = torch.sort(key, stable=True).indices
+    pools = {0: (state0, rid0), 1: (s1.index_select(1, order1),
+                                    rid0[order1])}
+    del s1
+    megas = {cid: main_path_step(cid, dev) for cid in (0, 6)}
+    cl8, wrays = wavefront_pools(dev)
+    rays = {depth: r for depth, *r in wrays}
+
+    def k2(depth):
+        state, rid = pools[depth]
+
+        def call(x):
+            return x, cmk.fused_bounce(cms8, x, rid, kw8["seed"], depth,
+                                       **bkw)
+        return call, state.clone
+
+    def k4(depth, any_hit):
+        o, d, active, lim = rays[depth]
+
+        def call(_):
+            if any_hit:
+                return (tk.occluded_clusters(cl8, o, d, lim, active=active),)
+            return tuple(tk.intersect_clusters(cl8, o, d, active=active))
+        return call, None
+
+    def k1(cid):
+        mega, camm, wm, hm, kwm = megas[cid]
+        return (lambda _: mk.render_mega(mega, camm, wm, hm, **kwm)), None
+
+    k3 = (lambda _: cmk.render_cluster_mega(cms7, cam, w, h, **kw7)), None
+    work = {
+        "kernel 3, config 7 step": ("render_cluster_kernel", k3, reps),
+        "kernel 2, config 8 pool depth 0": ("fused_bounce_kernel", k2(0),
+                                            2 * reps),
+        "kernel 2, config 8 pool depth 1": ("fused_bounce_kernel", k2(1),
+                                            2 * reps)}
+    for depth in (0, 1):
+        for any_hit in (False, True):
+            work[f"kernel 4, config 8 pool depth {depth}, "
+                 f"{'any' if any_hit else 'closest'} hit"] = (
+                "traverse_kernel", k4(depth, any_hit), 2 * reps)
+    work["kernel 1, config 0 step"] = ("render_mega_kernel", k1(0), 2 * reps)
+    work["kernel 1, config 6 step"] = ("render_mega_kernel", k1(6),
+                                       max(2, reps // 3))
+    result = {}
+    for label, (kernel, (fn, prep), n) in work.items():
+        fn(prep() if prep else None)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                out = fn(prep() if prep else None)
+            torch.cuda.synchronize()
+        launches = [e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(launches) < n:
+            raise AssertionError(f"{label}: {len(launches)} launches of "
+                                 f"{kernel} in {n} calls")
+        digest = hashlib.sha256()
+        for t in out:
+            digest.update(torch.as_tensor(t).cpu().numpy().tobytes())
+        result[label] = {"ms": sum(launches) / 1e3 / n,
+                         "sha256": digest.hexdigest()}
+        del out
+    return result
+
+
+def kernel_ab(trees) -> dict:
+    """``--kernel-ab TREE [TREE ...]``: kernels 1-4 of this checkout against
+    those of the checkouts at each TREE, at the main path's shapes.  Each
+    turn is one process that runs ``kernel_ab_turn`` on one checkout's own
+    ``mcpt_torch``, so every checkout builds its own sources and declares
+    its own C interface; only the public entry points must be common.  The
+    turns run in the order TREE..., this, this, ...TREE reversed.  Prints
+    each turn's ms a call of every workload, the means, and whether each
+    checkout's outputs are the first TREE's bits → {workload: {name: mean
+    ms}}."""
+    card = smi()
+    print(f"nvidia-smi: {card}")
+    order = [*trees, "this", "this", *reversed(trees)]
+    turns = {name: [] for name in dict.fromkeys(order)}
+    for name in order:
+        root = ROOT if name == "this" else os.path.abspath(name)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--kernel-ab-turn",
+             root], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the kernel A/B turn of {name} failed "
+                               f"({proc.returncode})")
+        turns[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f"turn {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    first = turns[trees[0]][0]
+    result = {}
+    for label in first:
+        means = {name: sum(r[label]["ms"] for r in rs) / len(rs)
+                 for name, rs in turns.items()}
+        result[label] = means
+        print(f"{label} (kernel ms a call, turns in the order "
+              f"{', '.join(order)}) | {card}")
+        for name, rs in turns.items():
+            same = all(r[label]["sha256"] == first[label]["sha256"]
+                       for r in rs)
+            rel = means[name] / means[trees[0]] - 1
+            print(f"  {name}: " + " / ".join(f"{r[label]['ms']:.3f}"
+                                             for r in rs)
+                  + f"  mean {means[name]:.3f}  ({rel:+.1%} vs "
+                  f"{trees[0]})  {trees[0]}'s bits: {same}")
+    return result
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1467,6 +1696,12 @@ def main(argv=None) -> int:
                     help="only time the three large-scene engines (hybrid, "
                          "cluster-mega, wavefront) on configs 7 and 8 at 64 "
                          "spp, with a torch.profiler window each")
+    ap.add_argument("--kernel-ab", metavar="TREE", nargs="+",
+                    help="only time kernels 1-4 against those of the "
+                         "checkouts at each TREE, in turns, at the main "
+                         "path's shapes")
+    ap.add_argument("--kernel-ab-turn", metavar="CHECKOUT",
+                    help=argparse.SUPPRESS)  # one turn of --kernel-ab
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1482,6 +1717,13 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no mcpt_torch/ beside {__file__}; run it from "
               "the root of a checkout", file=sys.stderr)
         return 1
+    if args.kernel_ab_turn:
+        # this turn's package is the one of the checkout it times
+        sys.path.insert(0, os.path.abspath(args.kernel_ab_turn))
+        import mcpt_torch
+        print(f"kernel A/B turn on {mcpt_torch.__file__}", file=sys.stderr)
+        print(json.dumps(kernel_ab_turn()))
+        return 0
     sys.path.insert(0, ROOT)
     try:
         if args.fmad_ab:
@@ -1492,6 +1734,9 @@ def main(argv=None) -> int:
             return 0
         if args.engine_ab:
             engine_ab()
+            return 0
+        if args.kernel_ab:
+            kernel_ab(args.kernel_ab)
             return 0
         report = run()
     except Exception:  # noqa: BLE001 - any failed phase fails the run

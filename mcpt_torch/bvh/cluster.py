@@ -10,7 +10,11 @@ Port of ``mcpt/bvh/cluster.py`` (host numpy, like ``mcpt``'s):
 - the cluster triangle table ``tri16`` in the megakernel's row layout (Wald
   transform, normal, material id), padded per cluster with never-hit rows.
 
-The tables equal ``mcpt``'s bit for bit.  ``packed=True`` (``_cut_merged``)
+The tables equal ``mcpt``'s bit for bit.  Beside them the port keeps two
+things of its own, for the walks: each cluster's count of real rows
+(``live``: the padding rows sit last in their cluster, and a walk stops
+there) and the wide tree's depth (``wide_depth``: a walk's stack needs at
+most ``stack_entries(wide_depth)``).  ``packed=True`` (``_cut_merged``)
 was measured and not adopted by ``mcpt``, and is not ported; nor are the
 knobs no caller of ``mcpt``'s sets (``leaf_size``, ``optimize_top``, the DP
 cut's ratio): they are the constants below.
@@ -38,6 +42,13 @@ LEAF_SIZE = 32  # triangle rows per cluster
 # every push and raise on an overflow.
 STACK_CAP = 128
 MAX_WIDE_DEPTH = (STACK_CAP - 8) // 7  # deepest legal internal wide node
+MCPT_FIELDS = ("nodes", "wnodes", "tri16", "tri_map")  # mcpt's ClusterBVH
+
+
+def stack_entries(wide_depth: int) -> int:
+    """Stack entries a walk needs at most on a wide tree whose deepest
+    internal node is at ``wide_depth`` (root 0): ``7·depth + 8``."""
+    return 7 * wide_depth + 8
 
 
 class ClusterBVH(NamedTuple):
@@ -61,6 +72,9 @@ class ClusterBVH(NamedTuple):
     wnodes: torch.Tensor  # (Nw, 64) f32
     tri16: torch.Tensor  # (C·T, 16) f32 — megakernel row layout, cluster order
     tri_map: torch.Tensor  # (C·T,) int32 — row → original triangle id (pad: 0)
+    # the port's own, beside mcpt's tables (``MCPT_FIELDS``)
+    live: torch.Tensor  # (C,) int32 — real rows per cluster, first in it
+    wide_depth: int  # depth of the deepest internal wide node (root 0)
 
     @property
     def n_clusters(self) -> int:
@@ -114,7 +128,8 @@ def build_clusters(verts: np.ndarray, normals: np.ndarray, mat_id: np.ndarray,
                    plan: ClusterPlan, device="cpu") -> ClusterBVH:
     """Triangle soup + a plan → ClusterBVH on ``device``: the Wald rows in
     cluster order and the 8-wide collapse.  Padding rows carry the never-hit
-    Wald transform (A = 0, b = (0, 0, 1) ⇒ d'_w = 0 ⇒ t = -inf)."""
+    Wald transform (A = 0, b = (0, 0, 1) ⇒ d'_w = 0 ⇒ t = -inf); ``live``
+    counts each cluster's ``valid`` rows, which come first in it."""
     from mcpt_torch.scene import build_wald
 
     v = np.asarray(verts, np.float32).reshape(-1, 3, 3)
@@ -134,12 +149,50 @@ def build_clusters(verts: np.ndarray, normals: np.ndarray, mat_id: np.ndarray,
         tri16[~valid, 0:9] = 0.0
         tri16[~valid, 9:12] = np.array([0.0, 0.0, 1.0], np.float32)
 
+    per = valid.reshape(c, t)
+    live = per.sum(axis=1).astype(np.int32)
+    if not (per == (np.arange(t) < live[:, None])).all():
+        raise AssertionError("a padding row precedes a real row in a cluster")
+    wnodes, depth = _collapse_wide(nodes, c)
+
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-    return ClusterBVH(nodes=dev(nodes), wnodes=dev(collapse_wide(nodes, c)),
-                      tri16=dev(tri16),
-                      tri_map=dev(np.where(valid, order_p, 0).astype(np.int32)))
+    return ClusterBVH(nodes=dev(nodes), wnodes=dev(wnodes), tri16=dev(tri16),
+                      tri_map=dev(np.where(valid, order_p, 0).astype(np.int32)),
+                      live=dev(live), wide_depth=depth)
+
+
+def live_rows(tri16: np.ndarray, leaf_size: int) -> np.ndarray:
+    """(C,) int32 rows per cluster up to its last row that is not the
+    never-hit padding row: the ``live`` of tables that come without their
+    plan (``mcpt``'s, through ``convert``).  It equals the plan's count but
+    where a degenerate triangle, whose row is the padding row, ends a
+    cluster; such a row never hits, so the walks' answers are the same."""
+    rows = np.asarray(tri16, np.float32).reshape(-1, leaf_size, 16)
+    pad = ((rows[:, :, 0:9] == 0.0).all(axis=2)
+           & (rows[:, :, 9:12] == np.array([0.0, 0.0, 1.0], np.float32))
+           .all(axis=2))
+    real = ~pad
+    last = leaf_size - np.argmax(real[:, ::-1], axis=1)
+    return np.where(real.any(axis=1), last, 0).astype(np.int32)
+
+
+def wide_depth(wnodes: np.ndarray) -> int:
+    """Depth of the deepest internal node of an 8-wide table (root 0), read
+    from its child codes: ``_collapse_wide``'s own count, for tables that
+    come without it."""
+    w = np.asarray(wnodes, np.float32)
+    nw = w.shape[0]
+    depth, frontier = 0, [0]
+    while True:
+        codes = w[frontier, 48:56][~np.isnan(w[frontier, 0:48:6])]
+        frontier = sorted({int(x) for x in codes if x < nw})
+        if not frontier:
+            return depth
+        depth += 1
+        if depth >= nw:
+            raise ValueError("8-wide table has a cycle")
 
 
 def _bvh_numpy(bvh):
@@ -325,6 +378,11 @@ def collapse_wide(nodes: np.ndarray, n_clusters: int) -> np.ndarray:
     largest-area internal member until 8 members), with the 8 octant orders
     per node (see ``ClusterBVH``).  Raises ``ValueError`` when the wide tree
     is too deep for ``STACK_CAP``."""
+    return _collapse_wide(nodes, n_clusters)[0]
+
+
+def _collapse_wide(nodes: np.ndarray, n_clusters: int):
+    """``collapse_wide`` → (wnodes, depth of its deepest internal node)."""
     c = n_clusters
     leaf_base = c - 1
     bbmin = nodes[:, 0:3]
@@ -342,7 +400,7 @@ def collapse_wide(nodes: np.ndarray, n_clusters: int) -> np.ndarray:
     rows = []
     queue = [0]  # binary roots of pending wide nodes (BFS)
     wide_index = {0: 0}  # binary root id → wide node index
-    wide_depth = {0: 0}  # wide node index → depth (root = 0)
+    depth_of = {0: 0}  # wide node index → depth (root = 0)
     max_depth = 0
     while queue:
         root = queue.pop(0)
@@ -368,9 +426,9 @@ def collapse_wide(nodes: np.ndarray, n_clusters: int) -> np.ndarray:
                 else:
                     if m not in wide_index:
                         wide_index[m] = len(wide_index)
-                        wide_depth[wide_index[m]] = (
-                            wide_depth[wide_index[root]] + 1)
-                        max_depth = max(max_depth, wide_depth[wide_index[m]])
+                        depth_of[wide_index[m]] = (
+                            depth_of[wide_index[root]] + 1)
+                        max_depth = max(max_depth, depth_of[wide_index[m]])
                         queue.append(m)
                     row[48 + k] = float(wide_index[m])
             else:
@@ -404,7 +462,7 @@ def collapse_wide(nodes: np.ndarray, n_clusters: int) -> np.ndarray:
     refs = out[:, 48:56]
     out[:, 48:56] = np.where(refs >= _WIDE_LEAF_BIAS,
                              refs - _WIDE_LEAF_BIAS + nw, refs)
-    return out
+    return out, max_depth
 
 
 def cluster_sah(c: ClusterBVH) -> float:

@@ -6,7 +6,10 @@ same on both sides: ``MegaScene`` tables (``tri, cbox, matt, lit`` plus the
 scalar fields), ``ClusterBVH`` (``nodes, wnodes, tri16, tri_map``),
 ``ClusterMegaScene`` (its tables, scalars and scene-box tuples), ``Camera``,
 ``Framebuffer``, and the wavefront's ``RayPool`` and ``Hit``; a threefry key
-crosses as its two words (``jax.random.key_data``).  A test can so feed ``mcpt``'s own tables to the port's
+crosses as its two words (``jax.random.key_data``).  The cluster tables'
+port-only fields (``live``, ``wide_depth``) are read off ``mcpt``'s tables
+on the way in (``cluster.live_rows``, ``cluster.wide_depth``) and left out on
+the way back.  A test can so feed ``mcpt``'s own tables to the port's
 engines.  The CLI checkpoint is the
 ``.ckpt.npz`` that ``tools/render.py`` writes — ``{sum, count, done}`` — so a
 render checkpointed by either CLI resumes under the other.
@@ -19,7 +22,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from mcpt_torch.bvh.cluster import ClusterBVH
+from mcpt_torch.bvh import cluster as cluster_mod
+from mcpt_torch.bvh.cluster import MCPT_FIELDS, ClusterBVH
 from mcpt_torch.kernels.cluster_megakernel import ClusterMegaScene
 from mcpt_torch.kernels.megakernel import MegaScene
 from mcpt_torch.rng import Key
@@ -58,32 +62,48 @@ def megascene_to_numpy(mega: MegaScene) -> dict:
             for k, v in mega._asdict().items()}
 
 
+def _port_fields(wnodes, tri16, leaf_size: int, device) -> dict:
+    live = cluster_mod.live_rows(tri16, leaf_size)
+    return {"live": _tensor(live, device),
+            "wide_depth": cluster_mod.wide_depth(wnodes)}
+
+
 def clusterbvh_from_numpy(fields: Mapping, device) -> ClusterBVH:
     """``mcpt.bvh.cluster.ClusterBVH`` fields → the port's, on ``device``
-    (``tri_map`` int32, the rest f32)."""
-    return ClusterBVH(**{
-        k: _tensor(np.asarray(fields[k],
-                              np.int32 if k == "tri_map" else np.float32),
-                   device)
-        for k in ClusterBVH._fields})
+    (``tri_map`` int32, the rest f32, and the port's own fields)."""
+    t = {k: _tensor(np.asarray(fields[k],
+                               np.int32 if k == "tri_map" else np.float32),
+                    device)
+         for k in MCPT_FIELDS}
+    n_clusters = (t["nodes"].shape[0] + 1) // 2
+    return ClusterBVH(**t, **_port_fields(
+        fields["wnodes"], fields["tri16"],
+        t["tri16"].shape[0] // n_clusters, device))
 
 
 def clusterbvh_to_numpy(cl: ClusterBVH) -> dict:
-    return {k: _numpy(v) for k, v in cl._asdict().items()}
+    return {k: _numpy(getattr(cl, k)) for k in MCPT_FIELDS}
 
 
 def clustermegascene_from_numpy(fields: Mapping, device) -> ClusterMegaScene:
     """``mcpt.pallas.cluster_megakernel.ClusterMegaScene`` fields (arrays,
-    scalars and the scene-box tuples) → the port's on ``device``."""
+    scalars and the scene-box tuples) → the port's on ``device``, with the
+    port's own fields."""
+    port = _port_fields(fields["wnodes"], fields["tri16"],
+                        int(fields["leaf_size"]), device)
     return ClusterMegaScene(**{
-        k: (_CLUSTER_SCALARS[k](fields[k]) if k in _CLUSTER_SCALARS
+        k: (port[k] if k in port
+            else _CLUSTER_SCALARS[k](fields[k]) if k in _CLUSTER_SCALARS
             else _tensor(np.asarray(fields[k], np.float32), device))
         for k in ClusterMegaScene._fields})
 
 
 def clustermegascene_to_numpy(cms: ClusterMegaScene) -> dict:
+    """``mcpt``'s fields of ``cms`` (not the port's ``live``,
+    ``wide_depth``)."""
     return {k: (v if k in _CLUSTER_SCALARS else _numpy(v))
-            for k, v in cms._asdict().items()}
+            for k, v in cms._asdict().items()
+            if k not in ("live", "wide_depth")}
 
 
 def camera_from_numpy(fields: Mapping, device) -> Camera:

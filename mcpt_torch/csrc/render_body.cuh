@@ -19,7 +19,7 @@
 
 namespace mcpt {
 
-constexpr int kBlock = 128;       // threads per block of the megakernels
+constexpr int kBlock = 128;       // threads per block of the dense megakernel
 constexpr int kMaxSmem = 232448;  // bytes a block may hold on sm_90
 
 // Dynamic shared memory the staged tables take, or 0 when they (with the

@@ -147,17 +147,25 @@ def load(flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
     lib.mcpt_render_mega.restype = i32
     f32 = ctypes.c_float
     lib.mcpt_fused_bounce.argtypes = (
-        [ptr] * 4 + [i32] * 3 + [f32] * 4 + [ctypes.c_uint32] + [i32] * 6
+        [ptr] * 5 + [i32] * 4 + [f32] * 4 + [ctypes.c_uint32] + [i32] * 6
         + [ptr] * 3 + [i32] + [ptr, ptr])
     lib.mcpt_fused_bounce.restype = i32
     lib.mcpt_render_cluster.argtypes = (
-        [ptr] * 4 + [i32] * 2 + [ptr] * 2 + [i32] * 5 + [ptr] + [i32]
+        [ptr] * 5 + [i32] * 3 + [ptr] * 2 + [i32] * 5 + [ptr] + [i32]
         + [ptr] * 5 + [ptr])
     lib.mcpt_render_cluster.restype = i32
     lib.mcpt_traverse.argtypes = (
-        [ptr] * 2 + [i32] * 2 + [ptr] * 4 + [f32] + [i32] + [ptr] * 4
+        [ptr] * 3 + [i32] * 3 + [ptr] * 4 + [f32] + [i32] + [ptr] * 4
         + [i32] + [ptr, ptr])
     lib.mcpt_traverse.restype = i32
+    # resident blocks an SM at the launch's block size and shared memory
+    lib.mcpt_fused_bounce_blocks_per_sm.argtypes = [i32]
+    lib.mcpt_render_cluster_blocks_per_sm.argtypes = [i32] * 3
+    lib.mcpt_traverse_blocks_per_sm.argtypes = [i32] * 2
+    for fn in (lib.mcpt_fused_bounce_blocks_per_sm,
+               lib.mcpt_render_cluster_blocks_per_sm,
+               lib.mcpt_traverse_blocks_per_sm):
+        fn.restype = i32
     lib.mcpt_fma_chain.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.mcpt_fma_chain.restype = i32
     lib.mcpt_tables_in_smem.argtypes = [i32] * 4

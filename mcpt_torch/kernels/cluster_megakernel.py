@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -49,7 +50,7 @@ import numpy as np
 import torch
 
 from mcpt_torch import types as T
-from mcpt_torch.bvh.cluster import STACK_CAP
+from mcpt_torch.bvh.cluster import STACK_CAP, stack_entries
 from mcpt_torch.bvh.lbvh import morton30, one_thread
 from mcpt_torch.kernels import megakernel as mk
 
@@ -71,9 +72,11 @@ _LANE_CHUNK = 1 << 18
 LAUNCHES = 0
 CLUSTER_MEGA_LAUNCHES = 0
 # work done by ``walk_reference``: child boxes slab-tested (8 per internal
-# pop) and triangle rows Wald-tested (an any-hit walk stops at its first
-# hit, as the CUDA walk does) — the counts behind chip_smoke.py's bounds
-WALK_WORK = {"boxes": 0, "rows": 0}
+# pop) and triangle rows Wald-tested (a leaf's live rows; an any-hit walk
+# stops at its first hit, as the CUDA walk does) — the counts behind
+# chip_smoke.py's bounds; "all_rows" counts every row of each visited leaf,
+# padding included (the count before the walks skipped padding)
+WALK_WORK = {"boxes": 0, "rows": 0, "all_rows": 0}
 
 
 class ClusterMegaScene(NamedTuple):
@@ -89,6 +92,10 @@ class ClusterMegaScene(NamedTuple):
     n_lights: int
     eps: float
     total_light_area: float
+    # the port's own (ClusterBVH.live, .wide_depth): real rows per cluster,
+    # and the wide depth that sizes a walk's stack (stack_entries)
+    live: torch.Tensor  # (C,) int32
+    wide_depth: int
     # scene AABB, quantised by the inter-bounce sort keys
     bb_lo: tuple = (0.0, 0.0, 0.0)
     bb_inv_ext: tuple = (1.0, 1.0, 1.0)
@@ -117,6 +124,7 @@ def build_cluster_megascene(scene: T.Scene, lights=None,
         n_clusters=cl.n_clusters, leaf_size=cl.leaf_size,
         n_mats=matt.shape[0], n_lights=n_lights,
         eps=float(mk._np(scene.eps)), total_light_area=total_area,
+        live=cl.live.to(device), wide_depth=cl.wide_depth,
         bb_lo=tuple(float(x) for x in lo),
         bb_inv_ext=tuple(float(x) for x in np.float32(1.0) / ext),
     )
@@ -141,16 +149,18 @@ def _octant(dx, dy, dz) -> torch.Tensor:
 
 
 def walk_reference(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
-                   ox, oy, oz, dx, dy, dz, t_min: float, limit=None):
+                   ox, oy, oz, dx, dy, dz, t_min: float, limit=None,
+                   live=None, stack_cap: int = STACK_CAP):
     """``_walk``: on CPU tensors on one PyTorch thread (its loop is many
     small ops; see ``lbvh.one_thread``)."""
     with one_thread(ox.device):
         return _walk(wnodes, tri16, leaf_size, ox, oy, oz, dx, dy, dz, t_min,
-                     limit)
+                     limit, live, stack_cap)
 
 
 def _walk(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
-          ox, oy, oz, dx, dy, dz, t_min: float, limit=None):
+          ox, oy, oz, dx, dy, dz, t_min: float, limit=None, live=None,
+          stack_cap: int = STACK_CAP):
     """Stack walk of the 8-wide cluster tree, one stack per ray, vectorised
     over rays (each loop pops one node of every ray that has one left).
 
@@ -158,22 +168,25 @@ def _walk(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
     on a miss.  Any-hit (``limit`` a tensor) → bool: a hit in
     (t_min, limit).  Children are pushed far-to-near by the ray's own
     direction octant (``wnodes[:, 56 + o]``) and pruned only when their
-    t-near exceeds the bound (see the module docstring).  A push past
-    ``STACK_CAP`` raises: ``collapse_wide`` rules it out."""
+    t-near exceeds the bound (see the module docstring).  A leaf tests its
+    first ``live[cluster]`` rows (all ``leaf_size`` without ``live``): the
+    padding rows after them never hit.  A push past ``stack_cap`` entries
+    raises: the tables' ``stack_entries(wide_depth)`` rules it out."""
     any_hit = limit is not None
     n = ox.shape[0]
     dev = ox.device
     n_wide = wnodes.shape[0]
     inv = (_safe_inv(dx), _safe_inv(dy), _safe_inv(dz))
     octant = _octant(dx, dy, dz)
-    stack = torch.zeros((n, STACK_CAP), dtype=torch.int64, device=dev)
+    stack = torch.zeros((n, stack_cap), dtype=torch.int64, device=dev)
     sp = torch.ones(n, dtype=torch.int64, device=dev)  # root 0 pushed
     best_t = torch.full((n,), _MISS, dtype=torch.float32, device=dev)
     best_row = torch.zeros(n, dtype=torch.int64, device=dev)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
     shifts = 3 * torch.arange(8, device=dev)
     row_iota = torch.arange(leaf_size, device=dev)
-    boxes, rows_tested = 0, torch.zeros((), dtype=torch.int64, device=dev)
+    boxes, all_rows = 0, 0
+    rows_tested = torch.zeros((), dtype=torch.int64, device=dev)
     while True:
         act = torch.nonzero((sp > 0) & ~occ).squeeze(1)
         if act.numel() == 0:
@@ -205,30 +218,35 @@ def _walk(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
             enc = w[:, 48:56].to(torch.int64).gather(1, slot)
             pos = sp[ia, None] + torch.cumsum(push.to(torch.int64), 1) - 1
             new_sp = sp[ia] + push.sum(1)
-            if int(new_sp.max()) > STACK_CAP:
+            if int(new_sp.max()) > stack_cap:
                 raise RuntimeError(
-                    f"cluster walk: traversal stack overflow (> {STACK_CAP}"
+                    f"cluster walk: traversal stack overflow (> {stack_cap}"
                     " entries); collapse_wide should have rejected this tree")
             r, c = torch.nonzero(push, as_tuple=True)
             stack[ia[r], pos[r, c]] = enc[r, c]
             sp[ia] = new_sp
 
         la, nl = act[is_leaf], node[is_leaf]
-        if la.numel():  # leaf: Wald-test the cluster's rows
+        if la.numel():  # leaf: Wald-test the cluster's live rows
             rows = (nl - n_wide)[:, None] * leaf_size + row_iota
+            n_live = (torch.full_like(nl, leaf_size) if live is None
+                      else live[nl - n_wide].to(torch.int64))
+            in_leaf = row_iota < n_live[:, None]
+            all_rows += leaf_size * la.numel()
             o = (ox[la, None], oy[la, None], oz[la, None])
             d = (dx[la, None], dy[la, None], dz[la, None])
             if any_hit:
                 _, ok = mk._wald(tri16[rows], o, d, t_min, limit[la, None])
+                ok &= in_leaf
                 blocked = ok.any(dim=1)
                 occ[la] |= blocked
                 rows_tested += torch.where(
                     blocked, ok.to(torch.int64).argmax(dim=1) + 1,
-                    leaf_size).sum()
+                    n_live).sum()
             else:
-                rows_tested += leaf_size * la.numel()
+                rows_tested += n_live.sum()
                 th, ok = mk._wald(tri16[rows], o, d, t_min, _MISS)
-                th = torch.where(ok, th, math.inf)
+                th = torch.where(ok & in_leaf, th, math.inf)
                 m = th.min(dim=1).values
                 first = torch.where(th == m[:, None], row_iota,
                                     leaf_size).min(dim=1).values
@@ -239,23 +257,55 @@ def _walk(wnodes: torch.Tensor, tri16: torch.Tensor, leaf_size: int,
                 best_row[la] = torch.where(upd, row, br)
     WALK_WORK["boxes"] += boxes
     WALK_WORK["rows"] += int(rows_tested)
+    WALK_WORK["all_rows"] += all_rows
     return occ if any_hit else (best_t, best_row)
+
+
+def walk_tables(tables, ox, oy, oz, dx, dy, dz, t_min: float, limit=None):
+    """``walk_reference`` over a ``ClusterMegaScene`` or a ``ClusterBVH``
+    with its live rows and its stack size, as the kernels walk it."""
+    return walk_reference(tables.wnodes, tables.tri16, tables.leaf_size, ox,
+                          oy, oz, dx, dy, dz, t_min, limit, tables.live,
+                          stack_entries(tables.wide_depth))
 
 
 def _walk_pair(cms: ClusterMegaScene):
     """The (closest, occluded) intersectors ``megakernel._bounce`` takes."""
 
     def closest(ox, oy, oz, dx, dy, dz, t_min):
-        best_t, best_row = walk_reference(cms.wnodes, cms.tri16,
-                                          cms.leaf_size, ox, oy, oz, dx, dy,
-                                          dz, t_min)
+        best_t, best_row = walk_tables(cms, ox, oy, oz, dx, dy, dz, t_min)
         return best_t, cms.tri16[best_row]
 
     def occluded(sox, soy, soz, iwx, iwy, iwz, limit, t_min):
-        return walk_reference(cms.wnodes, cms.tri16, cms.leaf_size, sox, soy,
-                              soz, iwx, iwy, iwz, t_min, limit)
+        return walk_tables(cms, sox, soy, soz, iwx, iwy, iwz, t_min, limit)
 
     return closest, occluded
+
+
+def _check_walk_tables(tables, dev) -> int:
+    """The checks every walking kernel's wrapper makes of its tables
+    (``ClusterMegaScene`` or ``ClusterBVH``) → the stack entries a thread
+    gets."""
+    for name, dtype in (("wnodes", torch.float32), ("tri16", torch.float32),
+                        ("live", torch.int32)):
+        t = getattr(tables, name)
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != dev:
+            raise ValueError(f"tables on {t.device}, the rest on {dev}")
+    if (tables.wnodes.dim() != 2 or tables.wnodes.shape[1] != 64
+            or tables.wnodes.shape[0] < 1 or tables.tri16.shape[1:] != (16,)
+            or tables.tri16.shape[0] != tables.n_clusters * tables.leaf_size
+            or tuple(tables.live.shape) != (tables.n_clusters,)):
+        raise ValueError("cluster tables have the wrong shapes")
+    if tables.wnodes.data_ptr() % 16 or tables.tri16.data_ptr() % 16:
+        raise ValueError("wnodes and tri16 must be 16-byte aligned (the "
+                         "kernel reads them as float4)")
+    return stack_entries(tables.wide_depth)
 
 
 # --------------------------------------------------------------------------
@@ -311,7 +361,7 @@ def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
     global LAUNCHES
     from mcpt_torch.kernels import _build
 
-    for name in ("wnodes", "tri16", "matt", "lit"):
+    for name in ("matt", "lit"):
         mk._check_cuda(f"cms.{name}", getattr(cms, name))
     mk._check_cuda("state", state)
     dev = state.device
@@ -323,24 +373,20 @@ def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
             or tuple(rid.shape) != (n,) or not rid.is_contiguous()):
         raise ValueError(f"rid must be a contiguous int32 ({n},) tensor on "
                          f"{dev}")
-    if (cms.wnodes.shape[1:] != (64,) or cms.tri16.shape[1:] != (16,)
-            or cms.tri16.shape[0] != cms.n_clusters * cms.leaf_size):
-        raise ValueError("cluster tables have the wrong shapes")
-    for t in (cms.wnodes, cms.tri16, cms.matt, cms.lit):
+    cap = _check_walk_tables(cms, dev)
+    for t in (cms.matt, cms.lit):
         if t.device != dev:
             raise ValueError(f"tables on {t.device}, state on {dev}")
-    if cms.wnodes.data_ptr() % 16 or cms.tri16.data_ptr() % 16:
-        raise ValueError("wnodes and tri16 must be 16-byte aligned (the "
-                         "kernel reads them as float4)")
     segs = torch.empty(n, dtype=torch.float32, device=dev)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    # [0] the stack-overflow flag, [1] the next ray to hand out
+    err = torch.zeros(2, dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mcpt_fused_bounce(
-            cms.wnodes.data_ptr(), cms.tri16.data_ptr(), cms.matt.data_ptr(),
-            cms.lit.data_ptr(), cms.wnodes.shape[0], cms.leaf_size,
-            cms.n_lights, _f32(cms.eps), _f32(t_min),
+            cms.wnodes.data_ptr(), cms.tri16.data_ptr(), cms.live.data_ptr(),
+            cms.matt.data_ptr(), cms.lit.data_ptr(), cms.wnodes.shape[0],
+            cms.leaf_size, cap, cms.n_lights, _f32(cms.eps), _f32(t_min),
             _f32(cms.total_light_area), _f32(clamp), int(seed) & _M32,
             int(depth), int(max_depth), int(bool(rr)), int(rr_start),
             int(bool(nee) and cms.n_lights > 0), int(bool(mis)),
@@ -350,10 +396,10 @@ def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
         raise RuntimeError(f"fused-bounce launch failed: CUDA error {rc} "
                            f"({lib.mcpt_error_string(rc).decode()})")
     LAUNCHES += 1
-    if int(err.item()) != 0:
-        raise RuntimeError(f"fused bounce: traversal stack overflow (> "
-                           f"{STACK_CAP} entries); collapse_wide should have "
-                           "rejected this tree")
+    if int(err[0].item()) != 0:
+        raise RuntimeError(f"fused bounce: traversal stack overflow (> {cap}"
+                           " entries); collapse_wide should have rejected "
+                           "this tree")
     return segs
 
 
@@ -381,14 +427,19 @@ def fused_bounce(cms: ClusterMegaScene, state: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-def _tile_pixels(width: int, height: int, device):
-    """``tile_order(width, height, BLKT)`` → (perm, inv_perm) as int64
-    tensors on ``device``: lane i renders pixel perm[i % W·H]."""
+@functools.lru_cache(maxsize=4)
+def tile_pixels(width: int, height: int, device: torch.device):
+    """``tile_order(width, height, BLKT)`` on ``device``, computed and
+    uploaded once per (width, height, device) → (perm, inv_perm) int64 and
+    perm int32: lane i renders pixel perm[i % W·H].  Shared by kernel 3,
+    its plain version and the hybrid's ``camera_pool``; nobody writes to
+    them."""
     from mcpt_torch.render.camera import tile_order
 
     perm, inv = tile_order(width, height, block=BLKT)
-    return (torch.from_numpy(perm).to(device, torch.int64),
-            torch.from_numpy(inv).to(device, torch.int64))
+    perm = torch.from_numpy(perm).to(device, torch.int64)
+    return perm, torch.from_numpy(inv).to(device, torch.int64), \
+        perm.to(torch.int32)
 
 
 def render_cluster_mega_reference(cms: ClusterMegaScene, cam: T.Camera,
@@ -405,7 +456,7 @@ def render_cluster_mega_reference(cms: ClusterMegaScene, cam: T.Camera,
     dense ones, so it computes the dense megakernel's and the hybrid's
     streams."""
     regen = mk._resolve_schedule(schedule, spp)
-    perm, inv = _tile_pixels(width, height, cms.wnodes.device)
+    perm, inv, _ = tile_pixels(width, height, cms.wnodes.device)
     lanes = mk.render_lanes_reference(
         cms, cam, width, height, spp, seed, max_depth, rr, rr_start, nee,
         mis, clamp, t_min, perm, 0, regen, *_walk_pair(cms))
@@ -423,49 +474,45 @@ def _render_cluster_mega_cuda(cms: ClusterMegaScene, cam: T.Camera, width,
     from mcpt_torch.kernels import _build
 
     regen = mk._resolve_schedule(schedule, spp)
-    for name in ("wnodes", "tri16", "matt", "lit"):
+    for name in ("matt", "lit"):
         mk._check_cuda(f"cms.{name}", getattr(cms, name))
     dev = cms.wnodes.device
-    for t in (cms.tri16, cms.matt, cms.lit):
+    cap = _check_walk_tables(cms, dev)
+    for t in (cms.matt, cms.lit):
         if t.device != dev:
             raise ValueError(f"tables on {t.device} and {dev}")
-    if (cms.wnodes.shape[1:] != (64,) or cms.tri16.shape[1:] != (16,)
-            or cms.tri16.shape[0] != cms.n_clusters * cms.leaf_size):
-        raise ValueError("cluster tables have the wrong shapes")
-    if cms.wnodes.data_ptr() % 16 or cms.tri16.data_ptr() % 16:
-        raise ValueError("wnodes and tri16 must be 16-byte aligned (the "
-                         "kernel reads them as float4)")
     sf = mk._sf(cms, cam, t_min, clamp)
     mk._check_cuda("camera", sf)
     if sf.device != dev:
         raise ValueError(f"camera on {sf.device}, tables on {dev}")
     n_pixels = width * height
-    perm, inv = _tile_pixels(width, height, dev)
-    pix = perm.to(torch.int32)
+    _, inv, pix = tile_pixels(width, height, dev)
     si = mk._si(0, cms.n_mats, cms.n_lights, width, height, spp, seed,
                 max_depth, rr, rr_start, n_pixels, 0, 0)
     n_lanes = n_pixels if regen else n_pixels * spp
     out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    # [0] the stack-overflow flag, [1] the next lane to hand out
+    err = torch.zeros(2, dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mcpt_render_cluster(
             si.ctypes.data, sf.data_ptr(), cms.wnodes.data_ptr(),
-            cms.tri16.data_ptr(), cms.wnodes.shape[0], cms.leaf_size,
-            cms.matt.data_ptr(), cms.lit.data_ptr(), cms.matt.shape[0],
-            cms.lit.shape[0], int(nee and cms.n_lights > 0), int(mis),
-            int(regen), pix.data_ptr(), n_lanes, out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
-            err.data_ptr(), ctypes.c_void_p(stream))
+            cms.tri16.data_ptr(), cms.live.data_ptr(), cms.wnodes.shape[0],
+            cms.leaf_size, cap, cms.matt.data_ptr(), cms.lit.data_ptr(),
+            cms.matt.shape[0], cms.lit.shape[0],
+            int(nee and cms.n_lights > 0), int(mis), int(regen),
+            pix.data_ptr(), n_lanes, out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), out[3].data_ptr(), err.data_ptr(),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"cluster megakernel launch failed: CUDA error "
                            f"{rc} ({lib.mcpt_error_string(rc).decode()})")
     CLUSTER_MEGA_LAUNCHES += 1
-    if int(err.item()) != 0:
+    if int(err[0].item()) != 0:
         raise RuntimeError(f"cluster megakernel: traversal stack overflow "
-                           f"(> {STACK_CAP} entries); collapse_wide should "
-                           "have rejected this tree")
+                           f"(> {cap} entries); collapse_wide should have "
+                           "rejected this tree")
     radiance, segs = mk._reduce(out, regen, spp, n_pixels)
     return radiance[inv].contiguous(), segs
 
@@ -511,13 +558,11 @@ def camera_pool(cms: ClusterMegaScene, cam: T.Camera, width: int,
     the dense megakernel's ``cam_ray`` with the same (sample, pixel) RNG
     streams, ``rsqrt`` written as ``1/sqrt``).  Pad lanes are dead, and
     their ids start at ``spp·W·H`` so the final id sort puts them last."""
-    from mcpt_torch.render.camera import tile_order
-
     dev = cms.wnodes.device
-    perm, _ = tile_order(width, height, block=BLKT)
-    n_px, total = perm.size, width * height
+    perm, _, _ = tile_pixels(width, height, dev)
+    n_px, total = perm.numel(), width * height
     n_rays = n_px * spp
-    pix = torch.from_numpy(perm).to(dev, torch.int64).repeat(spp)
+    pix = perm.repeat(spp)
     smp = torch.arange(spp, device=dev).repeat_interleave(n_px)
     idx = (smp * total + pix) & _M32
     sf = [float(x) for x in mk._sf(cms, cam, 0.0, 0.0).cpu().tolist()]

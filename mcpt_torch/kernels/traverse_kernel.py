@@ -29,7 +29,6 @@ import math
 
 import torch
 
-from mcpt_torch.bvh.cluster import STACK_CAP
 from mcpt_torch.kernels import cluster_megakernel as cmk
 from mcpt_torch.types import Hit
 
@@ -66,11 +65,9 @@ def traverse_reference(cl, origin, direction, active, limit, any_hit: bool,
     lim = limit[idx]
     if any_hit:
         occ = torch.zeros((r,), dtype=torch.bool, device=dev)
-        occ[idx] = cmk.walk_reference(cl.wnodes, cl.tri16, cl.leaf_size,
-                                      *ray, t_min, lim)
+        occ[idx] = cmk.walk_tables(cl, *ray, t_min, lim)
         return occ
-    best_t, best_row = cmk.walk_reference(cl.wnodes, cl.tri16, cl.leaf_size,
-                                          *ray, t_min)
+    best_t, best_row = cmk.walk_tables(cl, *ray, t_min)
     hit = best_t < lim  # the closest hit overall, if it lies below the limit
     t = torch.full((r,), _MISS, dtype=torch.float32, device=dev)
     row = torch.full((r,), -1, dtype=torch.int32, device=dev)
@@ -107,16 +104,10 @@ def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
     _check("direction", direction, torch.float32, (r, 3))
     _check("active", active, torch.bool, (r,))
     _check("limit", limit, torch.float32, (r,))
-    n_wide = cl.wnodes.shape[0]
-    _check("wnodes", cl.wnodes, torch.float32, (n_wide, 64))
-    _check("tri16", cl.tri16, torch.float32,
-           (cl.n_clusters * cl.leaf_size, 16))
-    for t in (direction, active, limit, cl.wnodes, cl.tri16):
+    for t in (direction, active, limit):
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
-    if cl.wnodes.data_ptr() % 16 or cl.tri16.data_ptr() % 16:
-        raise ValueError("wnodes and tri16 must be 16-byte aligned (the "
-                         "kernel reads them as float4)")
+    cap = cmk._check_walk_tables(cl, dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     if any_hit:
         occ = torch.empty((r,), dtype=torch.bool, device=dev)
@@ -130,7 +121,8 @@ def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mcpt_traverse(
-            cl.wnodes.data_ptr(), cl.tri16.data_ptr(), n_wide, cl.leaf_size,
+            cl.wnodes.data_ptr(), cl.tri16.data_ptr(), cl.live.data_ptr(),
+            cl.wnodes.shape[0], cl.leaf_size, cap,
             origin.data_ptr(), direction.data_ptr(), active.data_ptr(),
             limit.data_ptr(), float(t_min), int(any_hit), *outs, r,
             err.data_ptr(), ctypes.c_void_p(stream))
@@ -139,9 +131,8 @@ def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
                            f"({lib.mcpt_error_string(rc).decode()})")
     LAUNCHES += 1
     if int(err.item()) != 0:
-        raise RuntimeError(f"traverse: stack overflow (> {STACK_CAP} "
-                           "entries); collapse_wide should have rejected "
-                           "this tree")
+        raise RuntimeError(f"traverse: stack overflow (> {cap} entries); "
+                           "collapse_wide should have rejected this tree")
     return occ if any_hit else (t_out, row, normal)
 
 

@@ -168,3 +168,72 @@ def test_treelet_gpu_bvhtype_names_its_slice():
     assert tmetrics.sah(scene_g.bvh) < 0.9 * tmetrics.sah(scene_0.bvh)
     assert tlbvh.validate_bvh(scene_g.bvh, loaded.verts)["ok"]
     assert scene_g.clusters is not None
+
+
+_PORT_SCENES = [("boxfield", {"n_boxes": 60}), ("boxfield", {}),
+                ("diningroom", {})]
+
+
+@pytest.mark.parametrize("name,kw", _PORT_SCENES)
+def test_live_rows_are_the_plans_valid_rows(name, kw):
+    """``live`` counts each cluster's valid rows of the plan ``build_scene``
+    picks (the lower top-tree SAH of its two), which come first in their
+    cluster; the count read off ``tri16`` (``live_rows``, for ``mcpt``'s
+    tables) agrees, and the live rows hold every triangle once."""
+    loaded, _ = getattr(tscenes, name)(**kw)
+    verts = np.asarray(loaded.verts, np.float32).reshape(-1, 3, 3)
+    scene, _ = tbuild_scene(loaded, device="cpu")
+    cl = scene.clusters
+    p_morton = tcluster.plan_clusters(verts)
+    p_cut = tcluster.plan_clusters(
+        verts, bvh=ttreelet.optimize_treelets(scene.bvh), dp=True)
+    plan = (p_morton if tcluster.plan_sah(p_morton)
+            <= tcluster.plan_sah(p_cut) else p_cut)
+    np.testing.assert_array_equal(plan.nodes, cl.nodes.numpy())
+    valid = plan.valid.reshape(cl.n_clusters, cl.leaf_size)
+    live = cl.live.numpy()
+    assert cl.live.dtype == torch.int32
+    np.testing.assert_array_equal(live, valid.sum(axis=1))
+    np.testing.assert_array_equal(
+        valid, np.arange(cl.leaf_size)[None] < live[:, None])
+    np.testing.assert_array_equal(
+        tcluster.live_rows(cl.tri16.numpy(), cl.leaf_size), live)
+    rows = cl.tri_map.numpy().reshape(cl.n_clusters, cl.leaf_size)
+    assert sorted(rows[valid].tolist()) == list(range(verts.shape[0]))
+    assert 0 < live.min() and live.max() <= cl.leaf_size
+
+
+@pytest.mark.parametrize("name,kw", _PORT_SCENES)
+def test_wide_depth_sizes_the_stack(name, kw):
+    """The depth ``collapse_wide`` counts is the depth of the deepest
+    internal node read back off ``wnodes``; the stack a walk gets,
+    ``7·depth + 8``, is within ``STACK_CAP``."""
+    loaded, _ = getattr(tscenes, name)(**kw)
+    scene, _ = tbuild_scene(loaded, device="cpu")
+    cl = scene.clusters
+    assert cl.wide_depth == tcluster.wide_depth(cl.wnodes.numpy())
+    assert 1 <= cl.wide_depth <= tcluster.MAX_WIDE_DEPTH
+    assert tcluster.stack_entries(cl.wide_depth) == 7 * cl.wide_depth + 8
+    assert tcluster.stack_entries(tcluster.MAX_WIDE_DEPTH) <= \
+        tcluster.STACK_CAP
+
+
+def test_wide_depth_of_a_chain():
+    """A binary chain over 40 clusters: collapse_wide's count and the
+    table's own depth agree, and a cyclic table is refused."""
+    c = 40
+    nodes = np.zeros((2 * c - 1, 8), np.float32)
+    nodes[:, 3:6] = 1.0
+    for i in range(c - 1):
+        nodes[i, 6] = float((c - 1) + i)
+        nodes[i, 7] = float(i + 1) if i < c - 2 else float(2 * c - 2)
+    for j in range(c):
+        nodes[(c - 1) + j, 6] = nodes[(c - 1) + j, 7] = float(j)
+    wnodes, depth = tcluster._collapse_wide(nodes, c)
+    np.testing.assert_array_equal(wnodes, tcluster.collapse_wide(nodes, c))
+    assert depth == tcluster.wide_depth(wnodes) >= 4
+    cyclic = np.zeros((1, 64), np.float32)
+    cyclic[0, 3:6] = 1.0  # slot 0 is node 0 itself
+    cyclic[0, 6:48] = np.nan
+    with pytest.raises(ValueError, match="cycle"):
+        tcluster.wide_depth(cyclic)

@@ -222,3 +222,106 @@ def test_convert_round_trips(boxfield60):
     jk = jax.random.fold_in(jax.random.key(3), 4)
     assert convert.key_from_data(jax.random.key_data(jk)) == \
         rng.fold_in(rng.key(3), 4)
+
+
+def _mixed_rays(camcfg, n, seed):
+    """Half camera rays, half rays from random points above the floor in
+    random directions: (ox, oy, oz, dx, dy, dz) float32 planes."""
+    r = np.random.default_rng(seed)
+    o = r.uniform([-150, 0.5, -150], [150, 40, 150], (n, 3))
+    o[: n // 2] = camcfg.position
+    d = r.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32))
+            for x in (*o.T, *d.T)]
+
+
+def test_walk_with_live_rows_equals_the_full_walk(boxfield60):
+    """The walk that stops at each cluster's live rows gives the walk over
+    every row's (t, row) and occlusion, and brute force's, on the same rays;
+    only the rows it counts shrink, by the padding."""
+    scene, lights, camcfg, _, _ = boxfield60
+    cms = cmk.build_cluster_megascene(scene, lights)
+    ray = _mixed_rays(camcfg, 2000, seed=12)
+    cmk.WALK_WORK.update(boxes=0, rows=0, all_rows=0)
+    t_live, row_live = cmk.walk_tables(cms, *ray, 1e-4)
+    live_work = dict(cmk.WALK_WORK)
+    cmk.WALK_WORK.update(boxes=0, rows=0, all_rows=0)
+    t_all, row_all = cmk.walk_reference(cms.wnodes, cms.tri16, cms.leaf_size,
+                                        *ray, 1e-4)
+    all_work = dict(cmk.WALK_WORK)
+    want_t, want_row = mk._closest(cms.tri16, *ray, 1e-4)
+    assert int((want_t < 3e38).sum()) > 400
+    for got_t, got_row in ((t_live, row_live), (t_all, row_all)):
+        assert torch.equal(got_t, want_t) and torch.equal(got_row, want_row)
+    assert live_work["boxes"] == all_work["boxes"]
+    assert live_work["all_rows"] == all_work["all_rows"] == all_work["rows"]
+    assert 0 < live_work["rows"] < all_work["rows"]
+    limit = torch.where(want_t < 3e38, want_t, 500.0)
+    for scale in (0.5, 1.0, 1.5):
+        occ = cmk.walk_tables(cms, *ray, 1e-4, limit * scale)
+        occ_all = cmk.walk_reference(cms.wnodes, cms.tri16, cms.leaf_size,
+                                     *ray, 1e-4, limit * scale)
+        want = mk._occluded(cms.tri16, *ray, limit * scale, 1e-4)
+        assert torch.equal(occ, want) and torch.equal(occ_all, want), scale
+
+
+def _visits(cms, o, d, t_min=1e-4):
+    """One ray's closest-hit walk, scalar by scalar in float32 numpy, in the
+    plain walk's order → the clusters it tests, in order."""
+    w = cms.wnodes.numpy()
+    tri16 = cms.tri16.numpy()
+    live = cms.live.numpy()
+    nw, t = w.shape[0], cms.leaf_size
+    f = np.float32
+    inv = [f(1.0) / (f(1e-30) * (f(-1) if x < 0 else f(1))
+                     if abs(x) < f(1e-30) else x) for x in d]
+    octant = int(d[0] > 0) + 2 * int(d[1] > 0) + 4 * int(d[2] > 0)
+    best = f(3.0e38)
+    stack, seen = [0], []
+    while stack:
+        node = stack.pop()
+        if node >= nw:
+            c = node - nw
+            seen.append(c)
+            th, ok = mk._wald(torch.from_numpy(tri16[c * t: c * t + live[c]]),
+                              tuple(torch.tensor(f(x)) for x in o),
+                              tuple(torch.tensor(f(x)) for x in d), t_min,
+                              3.0e38)
+            if bool(ok.any()):
+                best = min(best, f(th[ok].min()))
+            continue
+        box = w[node, :48].reshape(8, 6)
+        t0 = [(box[:, j] - f(o[j])) * inv[j] for j in range(3)]
+        t1 = [(box[:, 3 + j] - f(o[j])) * inv[j] for j in range(3)]
+        tn = np.maximum(np.maximum(np.minimum(t0[0], t1[0]),
+                                   np.minimum(t0[1], t1[1])),
+                        np.minimum(t0[2], t1[2]))
+        tf = np.minimum(np.minimum(np.maximum(t0[0], t1[0]),
+                                   np.maximum(t0[1], t1[1])),
+                        np.maximum(t0[2], t1[2]))
+        hit = (tf >= np.maximum(tn, f(0))) & (tn <= best)
+        code = int(w[node, 56 + octant])
+        for j in range(8):
+            k = (code >> (3 * j)) & 7
+            if hit[k]:
+                stack.append(int(w[node, 48 + k]))
+    return seen
+
+
+def test_walk_work_counts_the_live_rows_of_the_visited_clusters(boxfield60):
+    """WALK_WORK's rows are the sum of ``live`` over the clusters the walk
+    visits (counted by a scalar walk of each ray), and its all_rows the
+    leaf size times the visits: the counts behind chip_smoke.py's bounds."""
+    scene, lights, camcfg, _, _ = boxfield60
+    cms = cmk.build_cluster_megascene(scene, lights)
+    ray = _mixed_rays(camcfg, 96, seed=5)
+    cmk.WALK_WORK.update(boxes=0, rows=0, all_rows=0)
+    cmk.walk_tables(cms, *ray, 1e-4)
+    visits = [_visits(cms, [float(x[i]) for x in ray[:3]],
+                      [np.float32(x[i]) for x in ray[3:]])
+              for i in range(96)]
+    flat = [c for v in visits for c in v]
+    assert len(flat) > 40
+    assert cmk.WALK_WORK["rows"] == int(cms.live.numpy()[flat].sum())
+    assert cmk.WALK_WORK["all_rows"] == cms.leaf_size * len(flat)

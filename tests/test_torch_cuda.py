@@ -190,6 +190,85 @@ def test_cluster_mega_matches_plain_version(cuda, schedule):
     assert float(sa) == float(sb)
 
 
+@pytest.mark.parametrize("schedule", ["regen", "batch"])
+def test_cluster_mega_persistent_warps_on_a_ragged_pixel_count(cuda,
+                                                               schedule):
+    """37x23 = 851 pixels, a multiple neither of a warp nor of a block: the
+    persistent warps hand out every lane exactly once and give the plain
+    version's bits; a second launch right after the first (the lane counter
+    zeroed again) gives the same bits."""
+    cmk, cms, cam, _, _ = _hybrid_setup(cuda, w=37, h=23)
+    kw = dict(spp=3, seed=9, max_depth=4, nee=True, mis=True, rr=True,
+              rr_start=1, schedule=schedule)
+    a, sa = cmk.render_cluster_mega(cms, cam, 37, 23, **kw)
+    a2, sa2 = cmk.render_cluster_mega(cms, cam, 37, 23, **kw)
+    b, sb = cmk.render_cluster_mega_reference(cms, cam, 37, 23, **kw)
+    assert torch.equal(a, a2) and float(sa) == float(sa2)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(sa) == float(sb) and float(a.sum()) > 0.0
+
+
+def test_fused_bounce_live_lanes_ending_mid_warp(cuda):
+    """A sorted pool whose live lanes end at lane 1013, inside a warp: the
+    persistent threads bounce every live lane as the plain version does,
+    pass the dead ones through with 0 segments, and a second launch on the
+    same input gives the same bits."""
+    cmk, cms, _, state, rid = _hybrid_setup(cuda)
+    state[cmk.ALIVE, 1013:] = 0.0
+    kw = dict(max_depth=4, rr=True, rr_start=1, nee=True, mis=True)
+    a, a2, b = state.clone(), state.clone(), state.clone()
+    sa = cmk.fused_bounce(cms, a, rid, 3, 0, **kw)
+    sa2 = cmk.fused_bounce(cms, a2, rid, 3, 0, **kw)
+    sb = cmk.fused_bounce_reference(cms, b, rid, 3, 0, **kw)
+    assert torch.equal(a, a2) and torch.equal(sa, sa2)
+    assert torch.equal(sa, sb) and torch.equal(a[9:13], b[9:13])
+    live = a[cmk.ALIVE] > 0
+    assert torch.equal(a[:, live], b[:, live])
+    assert torch.equal(a[:, 1013:], state[:, 1013:])
+    assert float(sa[1013:].abs().sum()) == 0.0
+    assert float(sa[:1013].sum()) >= 1013
+
+
+def test_walking_kernels_fill_the_sm(cuda):
+    """At the repo's deepest tree (diningroom's, wide depth 6: 50 stack
+    entries) kernels 2 and 3 keep 32 warps an SM (8 blocks of 128 threads,
+    4 of 256), kernel 4 at least 8 blocks."""
+    from mcpt_torch.bvh.cluster import stack_entries
+
+    lib = _build.load()
+    cap = stack_entries(6)
+    assert lib.mcpt_fused_bounce_blocks_per_sm(cap) == 8
+    assert lib.mcpt_render_cluster_blocks_per_sm(cap, 8, 64) == 4
+    for any_hit in (0, 1):
+        assert lib.mcpt_traverse_blocks_per_sm(any_hit, cap) >= 8
+
+
+def test_walking_kernels_past_65536_stack_codes(cuda):
+    """boxfield(60)'s tables behind 70,000 empty clusters, so every cluster
+    code the walks push lies past 2^16: kernels 2 and 3 give the bits of the
+    unshifted tables."""
+    cmk, cms, cam, state, rid = _hybrid_setup(cuda)
+    pad = 70000
+    w = cms.wnodes.clone()
+    codes = w[:, 48:56]
+    w[:, 48:56] = torch.where(codes >= w.shape[0], codes + pad, codes)
+    big = cms._replace(
+        wnodes=w, n_clusters=cms.n_clusters + pad,
+        tri16=torch.cat([torch.zeros((pad * cms.leaf_size, 16), device=cuda),
+                         cms.tri16]),
+        live=torch.cat([torch.zeros(pad, dtype=torch.int32, device=cuda),
+                        cms.live]))
+    kw = dict(max_depth=4, rr=True, rr_start=1, nee=True, mis=True)
+    a, b = state.clone(), state.clone()
+    sa = cmk.fused_bounce(big, a, rid, 3, 0, **kw)
+    sb = cmk.fused_bounce(cms, b, rid, 3, 0, **kw)
+    assert torch.equal(a, b) and torch.equal(sa, sb)
+    kw = dict(kw, spp=2, seed=5)
+    ra, sa = cmk.render_cluster_mega(big, cam, 32, 24, **kw)
+    rb, sb = cmk.render_cluster_mega(cms, cam, 32, 24, **kw)
+    assert torch.equal(ra, rb) and float(sa) == float(sb) > 0.0
+
+
 def _random_rays(device, n=20000, seed=8):
     import numpy as np
 
