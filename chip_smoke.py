@@ -16,7 +16,10 @@ one nvcc each, in parallel; the host treelet library with g++), 3 kernel vs
 plain version on small views of
 each tier, 4 oracles, 5 main path (``mcpt_torch.render_cli`` on configs 0, 2
 and 6), 6 kernel vs plain version at the main path's own render steps
-(configs 0 and 6, taken from ``config.json``), timed.
+(configs 0 and 6, taken from ``config.json``), timed, with each step's
+bound, its ceiling without contraction (``-fmad=false``: the same
+operations at half the FP32 peak), and kernel 1's ptxas report and resident
+blocks an SM for that scene's tables.
 
 Phases, hybrid fused bounce (kernel 2): 7 build report (ptxas's registers,
 stack and spill of the kernel), 8 whole ``render_hybrid`` through the
@@ -66,7 +69,9 @@ walks skipped padding).
 ``python3 chip_smoke.py --crossover`` instead times the two engines through
 their kernels on boxfield(n) at 724-6004 triangles (the ``auto`` engine's
 crossover); ``--fmad-ab`` the dense kernel built with ``-fmad=false`` and
-``-fmad=true``; ``--engine-ab`` the three large-scene engines on configs 7
+``-fmad=true``; ``--define-ab DEFS [DEFS ...]`` the dense kernel as built
+against the same sources built with each set of macro definitions, bit for
+bit, at configs 0, 6 and 1's steps; ``--engine-ab`` the three large-scene engines on configs 7
 and 8 at 64 spp with a ``torch.profiler`` window each; ``--kernel-ab TREE
 [TREE ...]`` kernels 1-4 against those of other checkouts (each turn a
 process on one checkout's own package), in turns, at the main path's
@@ -266,13 +271,13 @@ def run() -> dict:
         mega, cam = setup(name, w, h, dev, **kw)
         rows = (mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
                 mega.cbox.shape[0])
-        table_kb = 4 * (16 * sum(rows[:3]) + 8 * rows[3]) / 1024
-        in_smem = bool(lib.mcpt_tables_in_smem(*rows))
+        table_kb = mk.table_bytes(*rows) / 1024
+        home = mk.table_home(*rows)
         print(f"{name} {w}x{h}: {mega.n_tris} tris "
-              f"({'chunked' if mega.n_tris > mk.UNROLL_MAX_TRIS else 'unrolled'}"
-              f" tier), {mega.n_lights} lights, tables {table_kb:.1f} KB "
-              f"({'shared' if in_smem else 'global'} memory)")
-        if name == "furnace_sphere" and not (in_smem and table_kb > 48):
+              f"({mk.tier(mega.n_tris)} tier), {mega.n_lights} lights, "
+              f"tables {table_kb:.1f} KB in {home} memory")
+        if name == "furnace_sphere" and not (home == "shared"
+                                             and table_kb > 48):
             raise AssertionError("furnace tables should take shared memory "
                                  "above 48 KB")
         for sched in ("regen", "batch"):
@@ -386,12 +391,18 @@ def run() -> dict:
               f" {sa / ms / 1e3:.1f} Mrays/s kernel, "
               f"{sa / plain_ms / 1e3:.2f} Mrays/s plain) | {card}")
         # regen at spp > 1 and batch at spp 1: one lane per pixel
-        b_ms, b_by = bound(nbytes(mega.tri, mega.matt, mega.lit, mega.cbox)
-                           + 19 * 4 + 16 * w * h, work["boxes"],
-                           work["rows"])
+        moved = (nbytes(mega.tri, mega.matt, mega.lit, mega.cbox) + 19 * 4
+                 + 16 * w * h)
+        b_ms, b_by = bound(moved, work["boxes"], work["rows"])
+        # -fmad=false: no multiply-add pairs into an FMA, so the same
+        # operations issue at most at half the FP32 peak
+        ceil_ms, _ = bound(moved, 2 * work["boxes"], 2 * work["rows"])
         print(f"  {label}: {work['rows']:.0f} rows and {work['boxes']:.0f} "
-              f"boxes tested a step -> bound {b_ms:.4f} ms ({b_by}); "
-              f"kernel 1's cbox step as first recorded: 6.654 ms (PERF.md)")
+              f"boxes tested a step -> bound {b_ms:.4f} ms ({b_by}), "
+              f"ceiling without contraction {ceil_ms:.4f} ms; kernel "
+              f"{ms:.3f} ms is {b_ms / ms:.1%} of the bound, "
+              f"{ceil_ms / ms:.1%} of the ceiling")
+        print(f"  {label}: {mega_report(lib, mega)}")
         if cid == 0:  # the default config's step is the reported time
             report["ms"], report["plain_ms"] = ms, plain_ms
             report["bound_ms"], report["bound_by"] = b_ms, b_by
@@ -645,6 +656,29 @@ def walk_report(tables, kernel: str, blocks_per_sm: int,
             f" padding)")
 
 
+def mega_report(lib, mega) -> str:
+    """One line on kernel 1's instantiation for a scene's tables: its tier
+    and table home, ptxas's registers, stack and spills, and its resident
+    blocks an SM."""
+    from mcpt_torch.kernels import _build
+    from mcpt_torch.kernels import megakernel as mk
+
+    rows = (mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
+            mega.cbox.shape[0])
+    home, tier = mk.table_home(*rows), mk.tier(mega.n_tris)
+    code = mk._HOME_CODES[home]
+    chunked = int(tier == "chunked")
+    rep = ptxas_report(_build.library_path().with_suffix(".log").read_text())
+    key = f"render_mega_kernelILb{chunked}ELi{code}E"
+    regs, stack, st, ld = next(v for k, v in rep.items() if key in k)
+    blocks = lib.mcpt_render_mega_blocks_per_sm(*rows, chunked, code)
+    threads = lib.mcpt_render_mega_block_threads()
+    return (f"kernel 1 ({tier} tier, rows in {home} memory): {regs} "
+            f"registers, {stack} B stack frame, {st} B spill stores, {ld} B "
+            f"spill loads; {blocks} resident blocks of {threads} threads an "
+            f"SM ({blocks * threads // 32} warps)")
+
+
 def ptxas_report(log: str) -> dict:
     """ptxas's registers, stack frame and spills for each kernel entry in a
     build log → {mangled name: (registers, stack B, spill stores B, spill
@@ -756,8 +790,15 @@ def run_slice3(card) -> dict:
     phase(12, "build report: ptxas per kernel")
     lib = _build.load()
     rep = ptxas_report(_build.library_path().with_suffix(".log").read_text())
-    for key, label in (("render_mega_kernel", "kernel 1 render_mega_kernel"),
-                       ("fused_bounce_kernel", "kernel 2 fused_bounce_kernel"),
+    homes = {code: home for home, code in mk._HOME_CODES.items()}
+    for name in sorted(n for n in rep if "render_mega_kernel" in n):
+        chunked, code = re.search(r"ILb(\d)ELi(\d)E", name).groups()
+        regs, stack, st, ld = rep[name]
+        print(f"kernel 1 render_mega_kernel "
+              f"({'chunked' if chunked == '1' else 'unrolled'} tier, rows in "
+              f"{homes[int(code)]} memory): {regs} registers, {stack} B "
+              f"stack, {st} B spill stores, {ld} B spill loads")
+    for key, label in (("fused_bounce_kernel", "kernel 2 fused_bounce_kernel"),
                        ("render_cluster_kernel",
                         "kernel 3 render_cluster_kernel"),
                        ("traverse_kernelILb0", "kernel 4 traverse_kernel "
@@ -768,8 +809,9 @@ def run_slice3(card) -> dict:
         regs, stack, st, ld = rep[name]
         print(f"{label}: {regs} registers, {stack} B stack, {st} B spill "
               f"stores, {ld} B spill loads")
-    print("kernel 1 before the shared render body (PERF.md): 96 "
-          "registers, 48 B stack, 16 B spill stores; its bits: phase 3")
+    print("kernel 1 before its redesign (PERF.md): 96 registers, 48 B "
+          "stack, 16 B spill stores, 5 blocks of 128 an SM; its bits: "
+          "phases 3 and 6")
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
     t_phase = time.perf_counter()
@@ -1010,11 +1052,13 @@ def run_slice3(card) -> dict:
     return out
 
 
-def sass_counts(lib_path, key: str) -> dict:
-    """{function: {FFMA, FMUL, FADD, reuse: count}} of the kernel functions
-    whose mangled name holds ``key``, from ``cuobjdump -sass`` of
-    ``lib_path`` (``reuse``: FFMAs that read an operand from the reuse
-    cache); None when the toolkit has no cuobjdump."""
+def sass_counts(lib_path, key: str,
+                ops=("FFMA", "FMUL", "FADD")) -> dict:
+    """{function: {op: count, reuse: count}} of the kernel functions whose
+    mangled name holds ``key``, from ``cuobjdump -sass`` of ``lib_path``
+    (an op counts the instructions of that name and its suffixes;
+    ``reuse``: FFMAs that read an operand from the reuse cache); None when
+    the toolkit has no cuobjdump."""
     from pathlib import Path
 
     from mcpt_torch.kernels import _build
@@ -1029,8 +1073,9 @@ def sass_counts(lib_path, key: str) -> dict:
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split(None, 1)[0]
         if key in name:
-            out[name] = {op: len(re.findall(rf"\b{op}\b", chunk))
-                         for op in ("FFMA", "FMUL", "FADD")}
+            out[name] = {op: len(re.findall(rf"\b{re.escape(op)}\b",
+                                            chunk))
+                         for op in ops}
             out[name]["reuse"] = len(re.findall(r"\bFFMA\b[^;]*\.reuse",
                                                 chunk))
     return out
@@ -1466,15 +1511,17 @@ def crossover(spp: int = 16, step: int = 4) -> None:
               f"{'mega' if m >= hy else 'hybrid'} | {card}")
 
 
-def fmad_ab(reps: int = 10) -> None:
-    """``--fmad-ab``: the kernel built with ``_build.NVCC_FLAGS``
-    (``-fmad=false``) against the same sources built with ``-fmad=true``.
-    Prints each build's ptxas report, its parity with the plain version on
-    phase 3's cbox and veach_mis views (no gate: contraction is expected to
-    move coplanar ties), and the time of configs 0 and 6's main-path steps
-    by CUDA events, in the order false, true, true, false within this one
-    process."""
+def build_ab(variants: dict, gate: bool, reps: int = 10) -> None:
+    """Kernel 1 built from this checkout's sources with each variant's nvcc
+    flags ({name: flags}; the first is the reference), all in one process:
+    each build's ptxas report and SASS load and arithmetic counts of kernel
+    1, its resident blocks an SM at configs 0, 6 and 1, its parity with the
+    plain version on phase 3's cbox and veach_mis views (bit for bit when
+    ``gate``), whether its outputs at configs 0, 6 and 1's main-path steps
+    are the reference's bits, and kernel 1's device time at those steps, in
+    turns (the variants in order, then reversed)."""
     import inspect
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -1482,23 +1529,37 @@ def fmad_ab(reps: int = 10) -> None:
     from mcpt_torch.kernels import megakernel as mk
 
     dev = torch.device("cuda")
-    print(f"nvidia-smi: {smi()}")
-    variants = {"-fmad=false": _build.NVCC_FLAGS,
-                "-fmad=true": tuple("-fmad=true" if f == "-fmad=false" else f
-                                    for f in _build.NVCC_FLAGS)}
+    card = smi()
+    print(f"nvidia-smi: {card}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        list(pool.map(_build.build, variants.values()))
+    print(f"built {len(variants)} libraries in {time.perf_counter() - t0:.1f}"
+          " s")
+    ops = ("LDS", "LDS.128", "LDC", "LDC.64", "LDG", "FMUL", "FADD", "FFMA",
+           "MUFU.RCP", "BSSY", "VOTE")
     kernels = {}
     for name, flags in variants.items():
         lib = _build.load(flags)
-        log = _build.library_path(flags).with_suffix(".log").read_text()
-        print(f"{name}: " + " | ".join(
-            line.strip() for line in log.splitlines() if "registers" in line
-            or "stack frame" in line))
+        path = _build.library_path(flags)
+        rep = ptxas_report(path.with_suffix(".log").read_text())
+        sass = sass_counts(path, "render_mega_kernel", ops) or {}
+        print(f"{name}: {lib.mcpt_render_mega_block_threads()} threads a "
+              "block")
+        for fn, (regs, stack, st, ld) in sorted(rep.items()):
+            if "render_mega_kernel" in fn:
+                tmpl = re.search(r"ILb\d+ELi\d+E", fn)
+                counts = sass.get(fn, {})
+                print(f"  {tmpl.group(0) if tmpl else fn[:40]}: {regs} "
+                      f"registers, {stack} B stack, {st} B spill stores, "
+                      f"{ld} B spill loads | SASS "
+                      + " ".join(f"{k} {v}" for k, v in counts.items()))
 
         def render(*args, lib=lib, **kw):
-            bound = inspect.signature(mk.render_mega).bind(*args, **kw)
-            bound.apply_defaults()
-            return mk._render_mega_cuda(*bound.args, lib=lib)
-        kernels[name] = render
+            bound_args = inspect.signature(mk.render_mega).bind(*args, **kw)
+            bound_args.apply_defaults()
+            return mk._render_mega_cuda(*bound_args.args, lib=lib)
+        kernels[name] = (lib, render)
 
     print("parity with the plain version (spp 4, NEE+MIS+RR):")
     for scene, w, h, depth in (("cornell_box", 64, 64, 16),
@@ -1508,30 +1569,78 @@ def fmad_ab(reps: int = 10) -> None:
             kw = dict(spp=4, seed=11, max_depth=depth, rr=True, nee=True,
                       mis=True, schedule=sched)
             b, sb = mk.render_mega_reference(mega, cam, w, h, **kw)
-            for name, render in kernels.items():
+            for name, (_, render) in kernels.items():
                 a, sa = render(mega, cam, w, h, **kw)
-                parity(f"{scene} {w}x{h} {sched} {name}", a.cpu().numpy(),
-                       sa, b.cpu().numpy(), sb)
+                label = f"{scene} {w}x{h} {sched} {name}"
+                if gate:
+                    same = torch.equal(a.cpu(), b.cpu()) and float(sa) == \
+                        float(sb)
+                    print(f"  {label}: the plain version's bits: {same}")
+                    if not same:
+                        raise AssertionError(f"{label} differs from the "
+                                             "plain version")
+                else:
+                    parity(label, a.cpu().numpy(), sa, b.cpu().numpy(), sb)
 
-    print(f"time per main-path step (CUDA events, mean of {reps}):")
-    for cid in (0, 6):
+    first = next(iter(kernels))
+    order = [*kernels, *reversed(kernels)]
+    print("kernel 1's device time a main-path step (torch.profiler; turns "
+          f"{', '.join(order)})")
+    for cid, n in ((0, reps), (6, max(2, reps // 3)), (1, 5 * reps)):
         mega, cam, w, h, kw = main_path_step(cid, dev)
+        rows = (mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
+                mega.cbox.shape[0])
+        chunked = int(mk.tier(mega.n_tris) == "chunked")
+        code = mk._HOME_CODES[mk.table_home(*rows)]
         times = {name: [] for name in kernels}
-        for name in ("-fmad=false", "-fmad=true", "-fmad=true",
-                     "-fmad=false"):
-            kernels[name](mega, cam, w, h, **kw)  # warm-up
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            for _ in range(reps):
-                _, segs = kernels[name](mega, cam, w, h, **kw)
-            end.record()
-            torch.cuda.synchronize()
-            times[name].append(start.elapsed_time(end) / reps)
-            print(f"  config {cid} {w}x{h} {kw['spp']} spp {name}: "
-                  f"{times[name][-1]:.3f} ms ({float(segs):.0f} segments)")
-        gain = 1 - sum(times["-fmad=true"]) / sum(times["-fmad=false"])
-        print(f"  config {cid}: -fmad=true takes {gain:.1%} less time")
+        outs = {}
+        for name in order:
+            lib, render = kernels[name]
+            render(mega, cam, w, h, **kw)  # warm-up
+            ms, (rad, segs) = device_ms(
+                lambda: render(mega, cam, w, h, **kw), "render_mega_kernel",
+                n)
+            times[name].append(ms)
+            outs[name] = (rad, float(segs))
+        label = f"config {cid} {w}x{h} {kw['spp']} spp"
+        for name, ts in times.items():
+            same = (torch.equal(outs[name][0], outs[first][0])
+                    and outs[name][1] == outs[first][1])
+            lib = kernels[name][0]
+            blocks = lib.mcpt_render_mega_blocks_per_sm(*rows, chunked, code)
+            mean = sum(ts) / len(ts)
+            ref = sum(times[first]) / len(times[first])
+            print(f"  {label} {name}: " + " / ".join(f"{t:.3f}" for t in ts)
+                  + f" ms, mean {mean:.3f} ({mean / ref - 1:+.1%} vs "
+                  f"{first}); {blocks} blocks an SM; {first}'s bits: {same}"
+                  f" | {card}")
+            if gate and not same:
+                raise AssertionError(f"{label} {name}: not {first}'s bits")
+
+
+def device_ms(fn, kernel: str, n: int):
+    """``fn()`` called ``n`` times under ``torch.profiler``, one launch of
+    ``kernel`` a call → (device ms a launch of the kernels whose name holds
+    ``kernel``, so the callers' host work does not count; the last call's
+    result)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            out = fn()
+        torch.cuda.synchronize()
+    launches = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and kernel in e.name]
+    # the tracer may miss a window's first launch; more than n is a second
+    # kernel of that name
+    if not n // 2 <= len(launches) <= n:
+        raise AssertionError(f"{len(launches)} launches of {kernel} in {n} "
+                             "calls")
+    return sum(launches) / 1e3 / len(launches), out
 
 
 def kernel_ab_turn(reps: int = 10) -> dict:
@@ -1549,8 +1658,6 @@ def kernel_ab_turn(reps: int = 10) -> dict:
     import hashlib
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from mcpt_torch.kernels import cluster_megakernel as cmk
     from mcpt_torch.kernels import megakernel as mk
@@ -1575,7 +1682,7 @@ def kernel_ab_turn(reps: int = 10) -> dict:
     pools = {0: (state0, rid0), 1: (s1.index_select(1, order1),
                                     rid0[order1])}
     del s1
-    megas = {cid: main_path_step(cid, dev) for cid in (0, 6)}
+    megas = {cid: main_path_step(cid, dev) for cid in (0, 6, 1)}
     cl8, wrays = wavefront_pools(dev)
     rays = {depth: r for depth, *r in wrays}
 
@@ -1615,25 +1722,15 @@ def kernel_ab_turn(reps: int = 10) -> dict:
     work["kernel 1, config 0 step"] = ("render_mega_kernel", k1(0), 2 * reps)
     work["kernel 1, config 6 step"] = ("render_mega_kernel", k1(6),
                                        max(2, reps // 3))
+    work["kernel 1, config 1 step"] = ("render_mega_kernel", k1(1), 5 * reps)
     result = {}
     for label, (kernel, (fn, prep), n) in work.items():
         fn(prep() if prep else None)  # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                out = fn(prep() if prep else None)
-            torch.cuda.synchronize()
-        launches = [e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if len(launches) < n:
-            raise AssertionError(f"{label}: {len(launches)} launches of "
-                                 f"{kernel} in {n} calls")
+        ms, out = device_ms(lambda: fn(prep() if prep else None), kernel, n)
         digest = hashlib.sha256()
         for t in out:
             digest.update(torch.as_tensor(t).cpu().numpy().tobytes())
-        result[label] = {"ms": sum(launches) / 1e3 / n,
-                         "sha256": digest.hexdigest()}
+        result[label] = {"ms": ms, "sha256": digest.hexdigest()}
         del out
     return result
 
@@ -1689,6 +1786,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--fmad-ab", action="store_true",
                     help="only measure -fmad=false against -fmad=true")
+    ap.add_argument("--define-ab", metavar="DEFS", nargs="+",
+                    help="only measure kernel 1 as built against the same "
+                         "sources built with each DEFS (space-separated "
+                         "NAME=VALUE macro definitions), bit for bit")
     ap.add_argument("--crossover", action="store_true",
                     help="only time the megakernel against the hybrid on "
                          "boxfield(n), 724-6004 tris")
@@ -1727,7 +1828,16 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     try:
         if args.fmad_ab:
-            fmad_ab()
+            from mcpt_torch.kernels import _build
+            build_ab({"-fmad=false": _build.NVCC_FLAGS, "-fmad=true": tuple(
+                "-fmad=true" if f == "-fmad=false" else f
+                for f in _build.NVCC_FLAGS)}, gate=False)
+            return 0
+        if args.define_ab:
+            from mcpt_torch.kernels import _build
+            build_ab({"as built": _build.NVCC_FLAGS, **{
+                defs: _build.NVCC_FLAGS + tuple(f"-D{d}" for d in defs.split())
+                for defs in args.define_ab}}, gate=True)
             return 0
         if args.crossover:
             crossover()

@@ -37,7 +37,7 @@ struct Params {
   uint32_t seed;
   int rr, rr_start, n_pixels, n_mats, n_lights, pixel_base, total_pixels;
   int spp, sample_base;
-  int n_rows, n_mat_rows, n_lit_rows, n_chunks, chunked;
+  int n_rows, n_mat_rows, n_lit_rows, n_chunks;
   int use_nee, use_mis, regen, n_lanes, smem_tables;
 };
 

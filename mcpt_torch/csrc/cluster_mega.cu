@@ -170,7 +170,6 @@ int mcpt_render_cluster(const int* si, const float* sf, const float* wnodes,
   p.n_mat_rows = n_mat_rows;
   p.n_lit_rows = n_lit_rows;
   p.n_chunks = 0;
-  p.chunked = 0;
   p.use_nee = use_nee;
   p.use_mis = use_mis;
   p.regen = regen;

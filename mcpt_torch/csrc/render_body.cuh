@@ -19,17 +19,7 @@
 
 namespace mcpt {
 
-constexpr int kBlock = 128;       // threads per block of the dense megakernel
 constexpr int kMaxSmem = 232448;  // bytes a block may hold on sm_90
-
-// Dynamic shared memory the staged tables take, or 0 when they (with the
-// 19-float sf table beside them) do not fit a block and stay in global memory.
-inline size_t table_smem_bytes(int n_rows, int n_mat_rows, int n_lit_rows,
-                               int n_chunks) {
-  size_t bytes = sizeof(float) *
-                 (16u * (n_rows + n_mat_rows + n_lit_rows) + 8u * n_chunks);
-  return bytes + 19 * sizeof(float) <= kMaxSmem ? bytes : 0;
-}
 
 // The launch-wide shading constants (sf: 14 eps, 15 t_min, 16 light area,
 // 18 clamp, 0 disables).

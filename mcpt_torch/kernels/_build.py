@@ -159,17 +159,19 @@ def load(flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
         + [i32] + [ptr, ptr])
     lib.mcpt_traverse.restype = i32
     # resident blocks an SM at the launch's block size and shared memory
+    lib.mcpt_render_mega_blocks_per_sm.argtypes = [i32] * 6
+    lib.mcpt_render_mega_block_threads.argtypes = []
     lib.mcpt_fused_bounce_blocks_per_sm.argtypes = [i32]
     lib.mcpt_render_cluster_blocks_per_sm.argtypes = [i32] * 3
     lib.mcpt_traverse_blocks_per_sm.argtypes = [i32] * 2
-    for fn in (lib.mcpt_fused_bounce_blocks_per_sm,
+    for fn in (lib.mcpt_render_mega_blocks_per_sm,
+               lib.mcpt_render_mega_block_threads,
+               lib.mcpt_fused_bounce_blocks_per_sm,
                lib.mcpt_render_cluster_blocks_per_sm,
                lib.mcpt_traverse_blocks_per_sm):
         fn.restype = i32
     lib.mcpt_fma_chain.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.mcpt_fma_chain.restype = i32
-    lib.mcpt_tables_in_smem.argtypes = [i32] * 4
-    lib.mcpt_tables_in_smem.restype = i32
     lib.mcpt_error_string.argtypes = [i32]
     lib.mcpt_error_string.restype = ctypes.c_char_p
     return lib

@@ -53,6 +53,12 @@ _GR = 0x9E3779B1
 # kernel launches made by ``render_mega`` on CUDA tensors (never the plain
 # version's calls) — read by chip_smoke.py to show the main path used the kernel
 LAUNCHES = 0
+# the same launches by the table home ``table_home`` chose for them
+HOMES = {"shared": 0, "global": 0}
+# the shared memory a block may hold, less the 19-float sf table: tables
+# past it stay in global memory
+SMEM_TABLE_BYTES = 232448 - 19 * 4
+_HOME_CODES = {"shared": 0, "global": 1}
 # work the kernel does that ``render_mega_reference`` counts as it runs:
 # triangle rows Wald-tested and chunk boxes slab-tested (exact in the
 # unrolled tier; in the chunked tier a lower bound: every box, plus one
@@ -288,6 +294,29 @@ def _sf(mega: MegaScene, cam: T.Camera, t_min, clamp) -> torch.Tensor:
         cam.is_ortho.reshape(1),
         torch.tensor([clamp], dtype=torch.float32, device=dev),
     ]).to(torch.float32).contiguous()
+
+
+def table_bytes(n_rows: int, n_mat_rows: int, n_lit_rows: int,
+                n_chunks: int) -> int:
+    """Shared memory a block of the kernel stages the tables in: 12-float
+    triangle rows, 8-float chunk boxes, 16-float material and light rows
+    (the counts are the tables' first dimensions)."""
+    return 48 * n_rows + 32 * n_chunks + 64 * (n_mat_rows + n_lit_rows)
+
+
+def table_home(n_rows: int, n_mat_rows: int, n_lit_rows: int,
+               n_chunks: int) -> str:
+    """Where the kernel reads a launch's tables: ``"shared"`` (a copy in
+    each block's shared memory) when they fit it, else ``"global"`` (every
+    table read through the cache)."""
+    need = table_bytes(n_rows, n_mat_rows, n_lit_rows, n_chunks)
+    return "shared" if need <= SMEM_TABLE_BYTES else "global"
+
+
+def tier(n_tris: int) -> str:
+    """The kernel's instantiation for a scene: ``"unrolled"`` (every row
+    in order) up to ``UNROLL_MAX_TRIS`` triangles, ``"chunked"`` past it."""
+    return "chunked" if n_tris > UNROLL_MAX_TRIS else "unrolled"
 
 
 def _resolve_schedule(schedule: str, spp: int) -> bool:
@@ -823,6 +852,9 @@ def _render_mega_cuda(mega: MegaScene, cam: T.Camera, width, height, spp,
     n_pixels = width * height if pixel_count is None else pixel_count
     for name in ("tri", "cbox", "matt", "lit"):
         _check_cuda(f"mega.{name}", getattr(mega, name))
+    for name in ("tri", "cbox"):  # read as float4s
+        if getattr(mega, name).data_ptr() % 16:
+            raise ValueError(f"mega.{name} must be 16-byte aligned")
     sf = _sf(mega, cam, t_min, clamp)
     _check_cuda("camera", sf)
     dev = mega.tri.device
@@ -831,6 +863,9 @@ def _render_mega_cuda(mega: MegaScene, cam: T.Camera, width, height, spp,
     si = _si(mega.n_tris, mega.n_mats, mega.n_lights, width, height, spp,
              seed, max_depth, rr, rr_start, n_pixels, pixel_base, sample_base)
     n_lanes = n_pixels if regen else n_pixels * spp
+    rows = (mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
+            mega.cbox.shape[0])
+    home = table_home(*rows)
     out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
     if lib is None:
         lib = _build.load()
@@ -840,17 +875,17 @@ def _render_mega_cuda(mega: MegaScene, cam: T.Camera, width, height, spp,
         err = lib.mcpt_render_mega(
             si.ctypes.data, sf.data_ptr(), mega.tri.data_ptr(),
             mega.matt.data_ptr(), mega.lit.data_ptr(), mega.cbox.data_ptr(),
-            mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
-            mega.cbox.shape[0], int(mega.n_tris > UNROLL_MAX_TRIS),
-            int(nee and mega.n_lights > 0), int(mis), int(regen), n_lanes,
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            out[3].data_ptr(), ctypes.c_void_p(stream),
+            *rows, int(tier(mega.n_tris) == "chunked"),
+            int(nee and mega.n_lights > 0), int(mis), int(regen),
+            _HOME_CODES[home], out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), out[3].data_ptr(), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(
             f"megakernel launch failed: CUDA error {err} "
             f"({lib.mcpt_error_string(err).decode()})")
     LAUNCHES += 1
+    HOMES[home] += 1
     return _reduce(out, regen, spp, n_pixels)
 
 

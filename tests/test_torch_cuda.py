@@ -61,10 +61,12 @@ def test_kernel_reads_large_tables_from_global_memory(cuda):
     mega, cam = _setup("furnace_sphere", 16, 16, cuda, subdiv=4)
     rows = (mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
             mega.cbox.shape[0])
-    assert rows[0] == 5440 and not _build.load().mcpt_tables_in_smem(*rows)
+    assert rows[0] == 5440 and mk.table_home(*rows) == "global"
     for kw in (dict(nee=True, mis=True), {}):
+        before = mk.HOMES["global"]
         a, sa = mk.render_mega(mega, cam, 16, 16, spp=4, seed=3, max_depth=6,
                                **kw)
+        assert mk.HOMES["global"] == before + 1
         b, sb = mk.render_mega_reference(mega, cam, 16, 16, spp=4, seed=3,
                                          max_depth=6, **kw)
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -74,6 +76,106 @@ def test_kernel_reads_large_tables_from_global_memory(cuda):
                                rtol=0, atol=1e-5)
     torch.testing.assert_close(img[0, 0], torch.ones_like(img[0, 0]),
                                rtol=0, atol=1e-5)
+
+
+def _same_bits(mega, cam, w, h, **kw):
+    """The kernel's output equals the plain version's, bit for bit."""
+    a, sa = mk.render_mega(mega, cam, w, h, **kw)
+    b, sb = mk.render_mega_reference(mega, cam, w, h, **kw)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(sa) == float(sb)
+    return a, sa
+
+
+@pytest.mark.parametrize("name,depth", [("cornell_box", 8),
+                                        ("veach_mis", 6)])
+@pytest.mark.parametrize("schedule", ["regen", "batch"])
+def test_kernel_on_a_ragged_pixel_count(cuda, name, depth, schedule):
+    """23x17 = 391 pixels, a multiple of neither a warp nor a block nor the
+    8x4 tiles: the last warp and the edge tiles are partial, in both tiers
+    and both schedules."""
+    mega, cam = _setup(name, 23, 17, cuda)
+    _same_bits(mega, cam, 23, 17, spp=3, seed=4, max_depth=depth, rr=True,
+               nee=True, mis=True, schedule=schedule)
+
+
+def test_kernel_twice_in_a_row(cuda):
+    """A second launch of the same step renders every lane again, with the
+    same bits."""
+    mega, cam = _setup("veach_mis", 24, 16, cuda)
+    kw = dict(spp=2, seed=8, max_depth=6, nee=True, mis=True)
+    a1, s1 = mk.render_mega(mega, cam, 24, 16, **kw)
+    a2, s2 = _same_bits(mega, cam, 24, 16, **kw)
+    torch.testing.assert_close(a1, a2, rtol=0, atol=0)
+    assert float(s1) == float(s2)
+
+
+@pytest.mark.parametrize("schedule", ["regen", "batch"])
+def test_kernel_on_a_pixel_range(cuda, schedule):
+    """pixel_base and pixel_count: pixels [37, 138) of a 24x16 view, each
+    with its own (sample, pixel) RNG counter, so they equal those rows of
+    the whole view's render."""
+    mega, cam = _setup("cornell_box", 24, 16, cuda)
+    kw = dict(spp=2, seed=5, max_depth=6, rr=True, nee=True, mis=True,
+              schedule=schedule)
+    part, _ = _same_bits(mega, cam, 24, 16, pixel_base=37, pixel_count=101,
+                         **kw)
+    whole, _ = mk.render_mega(mega, cam, 24, 16, **kw)
+    torch.testing.assert_close(part, whole[37:138], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_boxes,home", [(383, "shared"), (384, "global")])
+def test_kernel_reads_each_table_home(cuda, n_boxes, home):
+    """boxfield(383)'s tables fill 231,360 of the 232,372 bytes a block may
+    hold beside the sf table; boxfield(384)'s 232,416 bytes, just past
+    them, stay in global memory.  Each launch goes where the wrapper's rule
+    sends it and gives the plain version's bits."""
+    mega, cam = _setup("boxfield", 16, 12, cuda, n_boxes=n_boxes)
+    rows = (mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
+            mega.cbox.shape[0])
+    assert mk.table_home(*rows) == home
+    before = mk.HOMES[home]
+    _same_bits(mega, cam, 16, 12, spp=2, seed=6, max_depth=4, rr=True,
+               nee=True, mis=True)
+    assert mk.HOMES[home] == before + 1
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "veach_mis"])
+def test_kernel_keeps_the_lower_row_of_a_tie(cuda, name):
+    """Every triangle twice: the table followed by a copy of itself with
+    the next material, so each row ties exactly with a twin in a later row
+    (in the chunked tier, a later chunk with the same box).  The first row
+    of a tie wins, so the doubled table renders the original's bits."""
+    mega, cam = _setup(name, 24, 16, cuda)
+    twin = mega.tri.clone()
+    twin[:, 15] = (twin[:, 15] + 1) % mega.n_mats
+    n_rows = mega.tri.shape[0]
+    doubled = mega._replace(
+        tri=torch.cat([mega.tri, twin]).contiguous(),
+        cbox=(torch.cat([mega.cbox, mega.cbox]).contiguous()
+              if mk.tier(mega.n_tris) == "chunked" else mega.cbox),
+        n_tris=n_rows + mega.n_tris)
+    assert mk.tier(doubled.n_tris) == mk.tier(mega.n_tris)
+    kw = dict(spp=2, seed=9, max_depth=6, nee=True, mis=True)
+    a, sa = _same_bits(doubled, cam, 24, 16, **kw)
+    b, sb = mk.render_mega(mega, cam, 24, 16, **kw)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(sa) == float(sb)
+
+
+def test_kernel_fills_the_sm(cuda):
+    """__launch_bounds__ holds kernel 1 to the registers that keep 20 warps
+    an SM resident at the repo's small scenes (cbox, veach_mis)."""
+    lib = _build.load()
+    threads = lib.mcpt_render_mega_block_threads()
+    for name in ("cornell_box", "veach_mis"):
+        mega, _ = _setup(name, 8, 8, cuda)
+        rows = (mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
+                mega.cbox.shape[0])
+        blocks = lib.mcpt_render_mega_blocks_per_sm(
+            *rows, int(mk.tier(mega.n_tris) == "chunked"),
+            mk._HOME_CODES[mk.table_home(*rows)])
+        assert blocks * threads // 32 >= 20, (name, blocks, threads)
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):

@@ -180,3 +180,55 @@ def test_more_combinations_match_mcpt(tmp_path, scene, w, h, kw):
     want, s_want = jax_render_mega(tmp_path, scene, w, h, **kw)
     got, s_got = torch_render_mega(scene, w, h, **kw)
     assert_parity(got, want, s_got, s_want)
+
+
+@pytest.mark.parametrize("scene,kw,tier,home", [
+    ("cornell_box", {}, "unrolled", "shared"),
+    ("veach_mis", {}, "chunked", "shared"),
+    ("boxfield", {"n_boxes": 60}, "chunked", "shared"),
+    ("furnace_sphere", {}, "chunked", "shared"),
+    # 231,360 of the 232,372 bytes a block may hold beside the sf table;
+    # 232,416 bytes, just past them, stay in global memory
+    ("boxfield", {"n_boxes": 383}, "chunked", "shared"),
+    ("boxfield", {"n_boxes": 384}, "chunked", "global"),
+    ("furnace_sphere", {"subdiv": 4}, "chunked", "global"),
+])
+def test_wrapper_picks_tier_and_table_home(scene, kw, tier, home):
+    """The rule the CUDA wrapper launches by: the tier from the triangle
+    count (``UNROLL_MAX_TRIS``), and where the tables live from their
+    sizes (12-float rows and 8-float boxes, 16-float material and light
+    rows)."""
+    from mcpt_torch import scenes
+    from mcpt_torch.kernels import megakernel as mk
+    from mcpt_torch.scene import build_scene
+
+    loaded, _ = getattr(scenes, scene)(**kw)
+    sc, lights = build_scene(loaded, device="cpu")
+    mega = mk.build_megascene(sc, lights)
+    rows = (mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
+            mega.cbox.shape[0])
+    assert mk.tier(mega.n_tris) == tier
+    assert mk.table_home(*rows) == home
+    assert mk.table_bytes(*rows) == (48 * rows[0] + 32 * rows[3]
+                                     + 64 * (rows[1] + rows[2]))
+    assert (mk.table_bytes(*rows) <= mk.SMEM_TABLE_BYTES) == (home ==
+                                                              "shared")
+
+
+@pytest.mark.parametrize("scene,w,h,kw,work", [
+    ("cornell_box", 16, 16, dict(spp=2, seed=7, max_depth=6, nee=True,
+                                 mis=True, rr=True),
+     {"boxes": 0, "rows": 112914}),
+    ("veach_mis", 16, 12, dict(spp=2, seed=7, max_depth=4, nee=True,
+                               mis=True),
+     {"boxes": 25804, "rows": 11882}),
+])
+def test_plain_version_work_counts(scene, w, h, kw, work):
+    """The rows and boxes the plain version counts as it runs (the inputs
+    of chip_smoke.py's bound for kernel 1) stay as they were before the
+    kernel's redesign."""
+    from mcpt_torch.kernels import megakernel as mk
+
+    mk.WORK.update(boxes=0, rows=0)
+    torch_render_mega(scene, w, h, **kw)
+    assert mk.WORK == work
