@@ -60,6 +60,14 @@ walk (boxfield(400)), 19 main path: ``render_cli`` on configs 4 (testbvh)
 and 5 (testall, treeletGPU) and config 7 with ``bvhtype`` treeletGPU at 4
 spp through ``auto``.
 
+Phase 20, the wavefront's threefry draws (``csrc/threefry.cu``, not a TPU
+kernel: ``jax.random`` through XLA in ``mcpt``): the kernel's SASS mix, the
+kernel vs its plain version at config 8's own draws (a sample's camera
+jitter, a bounce's shade and NEE draws), bit for bit and timed against its
+bound (integer operations at the SM's issue rate), then config 9's largest
+draw and ragged counts.  Phases 15 and 16 count its launches beside kernel
+4's, and phase 15 holds the wavefront against both plain versions.
+
 Phases 11, 13 and 14 also print each walking kernel's ptxas report, its
 stack (entries and shared memory a block), its resident blocks an SM, its
 tables' padding share, and its bound twice: from the live rows the walks
@@ -71,11 +79,13 @@ their kernels on boxfield(n) at 724-6004 triangles (the ``auto`` engine's
 crossover); ``--fmad-ab`` the dense kernel built with ``-fmad=false`` and
 ``-fmad=true``; ``--define-ab DEFS [DEFS ...]`` the dense kernel as built
 against the same sources built with each set of macro definitions, bit for
-bit, at configs 0, 6 and 1's steps; ``--engine-ab`` the three large-scene engines on configs 7
-and 8 at 64 spp with a ``torch.profiler`` window each; ``--kernel-ab TREE
-[TREE ...]`` kernels 1-4 against those of other checkouts (each turn a
-process on one checkout's own package), in turns, at the main path's
-shapes.  The last two lines of
+bit, at configs 0, 6 and 1's steps; ``--engine-ab [TREE ...]`` the three
+large-scene engines on configs 7 and 8 at 64 spp with a ``torch.profiler``
+window each, of this checkout and of other checkouts in turns;
+``--kernel-ab TREE [TREE ...]`` kernels 1-4 and threefry against those of
+other checkouts (each turn a process on one checkout's own package), in
+turns, at the main path's shapes; ``--only LABEL ...`` keeps the A/B
+workloads whose label holds one of the words.  The last two lines of
 standard output are the kernel report and the result, each one JSON
 object.
 """
@@ -110,6 +120,16 @@ MIN_SHARE, MAX_MEAN_REL, MAX_SEG_REL = 0.99, 1e-3, 1e-3
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
 BOX_FLOPS, ROW_FLOPS = 23, 40
+# 32-bit integer operations: the ALU pipe retires 64 a clock an SM and the
+# FMA pipe 64 more as IMAD (ptxas moves adds there: csrc/threefry.cu's SASS
+# holds 80-97 IMAD beside 70 IADD3), so at most the SM's issue rate, 4 warp
+# instructions or 128 lanes a clock: half the FP32 peak's flops (an FMA
+# counts 2) at the same clock.  A threefry output is 75 of them: 2 counter
+# adds, 20 rounds of add / rotate (one funnel shift) / xor, 10 key-injection
+# adds, the final xor, and the shift and or of the float's bits (the
+# subtraction of 1.0 is a float op, not counted)
+H100_INT32_OPS = H100_F32_FLOPS / 2
+THREEFRY_OPS = 75
 # golden gates at 256 spp (rel-RMSE against tests/goldens, 2048 spp)
 GOLDENS = [  # (scene, width, height, depth, tolerance)
     ("cornell_box", 128, 128, 16, 0.08),
@@ -412,6 +432,7 @@ def run() -> dict:
     report["hybrid"] = run_hybrid(card)
     report.update(run_slice3(card))
     report.update(run_slice4(card))
+    report.update(run_threefry(card))
     return report
 
 
@@ -635,10 +656,11 @@ def run_hybrid(card) -> dict:
 
 
 def walk_report(tables, kernel: str, blocks_per_sm: int,
-                threads: int = 128) -> str:
+                threads: int = 128, shared: int | None = None) -> str:
     """One line on a walking kernel of ``threads`` a block at a scene's
     tables: ptxas's registers, stack and spills, the stack a thread gets
-    (entries, shared memory a block) and the resident blocks an SM."""
+    (entries, the first ``shared`` of them in shared memory, all if None)
+    and the resident blocks an SM."""
     from mcpt_torch.bvh.cluster import stack_entries
     from mcpt_torch.kernels import _build
 
@@ -646,11 +668,12 @@ def walk_report(tables, kernel: str, blocks_per_sm: int,
     regs, stack, st, ld = next(v for k, v in rep.items() if kernel in k)
     cap = stack_entries(tables.wide_depth)
     live = tables.live.sum().item()
+    in_smem = cap if shared is None else min(cap, shared)
     return (f"  {kernel}: {regs} registers, {stack} B stack frame, {st} B "
             f"spill stores, {ld} B spill loads; wide depth "
-            f"{tables.wide_depth} -> stack of {cap} 32-bit entries a thread "
-            f"({4 * cap * threads} B of shared memory a {threads}-thread "
-            f"block); {blocks_per_sm} resident blocks an SM "
+            f"{tables.wide_depth} -> stack of {cap} 32-bit entries a thread, "
+            f"{in_smem} in shared memory ({4 * in_smem * threads} B a "
+            f"{threads}-thread block); {blocks_per_sm} resident blocks an SM "
             f"({blocks_per_sm * threads // 32} warps); {live} live rows of "
             f"{tables.tri16.shape[0]} ({1 - live / tables.tri16.shape[0]:.1%}"
             f" padding)")
@@ -873,32 +896,53 @@ def run_slice3(card) -> dict:
     cl, rays = wavefront_pools(dev)
     n_rays = rays[0][1].shape[0]
     for any_hit in (0, 1):
+        # csrc/traverse.cu: kTraverseBlock threads, kTraverseShared entries
+        # of the stack in shared memory
         print(walk_report(cl, f"traverse_kernelILb{any_hit}",
                           lib.mcpt_traverse_blocks_per_sm(
-                              any_hit, stack_entries(cl.wide_depth))))
+                              any_hit, stack_entries(cl.wide_depth)),
+                          threads=64, shared=16))
     k4 = {}
     max_abs4 = 0.0
     for depth, o, d, active, limit in rays:
         for any_hit in (False, True):
-            lim = limit if any_hit else torch.full_like(limit, 3.0e38)
-            args = (cl, o, d, active, lim, any_hit, 1e-4)
-            tk._traverse_cuda(*args)  # warm-up
-            kern_a, a = cuda_ms(lambda: tk._traverse_cuda(*args), 10)
+            # the calls intersect_clusters (no limit) and occluded_clusters
+            # make; the plain closest hit through hit_from_rows, the torch
+            # epilogue the kernel replaces
+            lim = limit if any_hit else None
+
+            def kernel():
+                return tk._traverse_cuda(cl, o, d, active, lim, any_hit)
+
+            def plain_version():
+                out = tk.traverse_reference(
+                    cl, o, d, active, limit if any_hit
+                    else torch.full_like(limit, 3.0e38), any_hit)
+                return out if any_hit else tk.hit_from_rows(cl, o, d, *out)
+
+            kernel()  # warm-up
+            kern_a, a = cuda_ms(kernel, 10)
             cmk.WALK_WORK.update(boxes=0, rows=0, all_rows=0)
-            plain, b = cuda_ms(lambda: tk.traverse_reference(*args))
+            plain, b = cuda_ms(plain_version)
             work = dict(cmk.WALK_WORK)
-            kern_b, a = cuda_ms(lambda: tk._traverse_cuda(*args), 10)
+            kern_b, a = cuda_ms(kernel, 10)
+            # every field bit for bit: t, tri (= tri_map[row], one id a live
+            # row), point, normal; or the occlusion
             pairs = [(a, b)] if any_hit else list(zip(a, b))
-            same = all(torch.equal(x, y) for x, y in pairs)
+            same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       if x.is_floating_point() else torch.equal(x, y)
+                       for x, y in pairs)
             if not any_hit:
-                ok = a[1] >= 0
+                ok = a.tri >= 0
                 max_abs4 = max(max_abs4, float(
-                    (a[0][ok] - b[0][ok]).abs().max()) if bool(ok.any())
+                    (a.t[ok] - b.t[ok]).abs().max()) if bool(ok.any())
                     else 0.0)
             ms = (kern_a + kern_b) / 2
-            out_bytes = n_rays if any_hit else 20 * n_rays
-            moved = (nbytes(cl.wnodes, cl.tri16, cl.live, o, d, active, lim)
-                     + out_bytes)
+            # in: origin, direction, active (and the any hit's limits);
+            # out: t, tri, point, normal (or one byte)
+            moved = (nbytes(cl.wnodes, cl.tri16, cl.live, o, d, active)
+                     + (nbytes(limit) + n_rays if any_hit
+                        else nbytes(cl.tri_map) + 32 * n_rays))
             b_ms, b_by = bound(moved, work["boxes"], work["rows"])
             b_all, _ = bound(moved, work["boxes"], work["all_rows"])
             what = "any hit" if any_hit else "closest hit"
@@ -923,7 +967,7 @@ def run_slice3(card) -> dict:
     t_phase = time.perf_counter()
     phase(15, "oracles on the new engines")
     saved = (cmk.CLUSTER_MEGA_LAUNCHES, tk.LAUNCHES, cmk.LAUNCHES,
-             mk.LAUNCHES)
+             mk.LAUNCHES, rng.LAUNCHES)
     scene, lights, cms, cam = hybrid_setup("boxfield", 64, 48, dev,
                                            n_boxes=60)
     args = dict(spp=4, seed=21, max_depth=6, rr=True, rr_start=2, nee=True,
@@ -943,14 +987,28 @@ def run_slice3(card) -> dict:
     wopts = integ.RenderOptions(max_depth=4, nee=True, mis=True,
                                 russian_roulette=True, rr_start_depth=1,
                                 resort=True)
+    before = (tk.LAUNCHES, rng.LAUNCHES)
     a, sa = integ.render_batch(scene, lights, cam, 64, 36, rng.key(5), wopts,
                                spp=2, with_stats=True)
-    with tk.plain_version_on_cuda():
+    through = (tk.LAUNCHES - before[0], rng.LAUNCHES - before[1])
+    with tk.plain_version_on_cuda(), rng.plain_version_on_cuda():
         b, sb = integ.render_batch(scene, lights, cam, 64, 36, rng.key(5),
                                    wopts, spp=2, with_stats=True)
-    check_parity("diningroom 64x36 wavefront (cluster kernel) vs its plain "
-                 "version", a.cpu().numpy(), float(sa), b.cpu().numpy(),
-                 float(sb), 64 * 36)
+    plain = (tk.LAUNCHES - before[0] - through[0],
+             rng.LAUNCHES - before[1] - through[1])
+    print(f"diningroom 64x36 wavefront: kernel 4 and threefry launches "
+          f"{through} through the kernels, {plain} under both plain "
+          "contexts")
+    # 4 bounces x (closest hit + shadow rays); 2 camera draws, then 4 x
+    # (shade + NEE) draws
+    if through != (2 * 4, 2 + 2 * 4) or plain != (0, 0):
+        raise AssertionError("the wavefront did not run through both "
+                             "kernels, or its plain version did")
+    same = torch.equal(a, b) and float(sa) == float(sb)
+    print(f"  kernels vs plain versions: the same bits {same}")
+    check_parity("diningroom 64x36 wavefront (kernel 4 and threefry) vs its "
+                 "plain version", a.cpu().numpy(), float(sa),
+                 b.cpu().numpy(), float(sb), 64 * 36)
     scene, lights, _, cam = hybrid_setup("furnace_sphere", 32, 32, dev,
                                          subdiv=2)
     fopts = integ.RenderOptions(max_depth=8, resort=True)
@@ -981,15 +1039,15 @@ def run_slice3(card) -> dict:
               f"rel-RMSE {err:.4f} (gate 0.35)")
         if not err < 0.35:
             raise AssertionError(f"golden gate diningroom ({label}): {err}")
-    (cmk.CLUSTER_MEGA_LAUNCHES, tk.LAUNCHES, cmk.LAUNCHES,
-     mk.LAUNCHES) = saved  # oracle launches are not main-path launches
+    (cmk.CLUSTER_MEGA_LAUNCHES, tk.LAUNCHES, cmk.LAUNCHES, mk.LAUNCHES,
+     rng.LAUNCHES) = saved  # oracle launches are not main-path launches
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
     t_phase = time.perf_counter()
     phase(16, "main path: mcpt_torch.render_cli on configs 7 and 8 through "
               "cluster-mega and the wavefront (16 spp)")
     main_path = {}
-    launches = {"cluster-mega": 0, "wavefront": 0}
+    launches = {"cluster-mega": 0, "wavefront": 0, "threefry": 0}
     with tempfile.TemporaryDirectory() as tmp:
         for cid in (7, 8):
             for engine in ("cluster-mega", "wavefront"):
@@ -999,7 +1057,7 @@ def run_slice3(card) -> dict:
                     engine=engine)
                 buf = io.StringIO()
                 cmk.CLUSTER_MEGA_LAUNCHES = tk.LAUNCHES = 0
-                cmk.LAUNCHES = mk.LAUNCHES = 0
+                cmk.LAUNCHES = mk.LAUNCHES = rng.LAUNCHES = 0
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(buf):
                     rc = render_cli.main(["--config", cfg_path, "--configid",
@@ -1008,6 +1066,7 @@ def run_slice3(card) -> dict:
                 wall = time.perf_counter() - t0
                 got = {"cluster-mega": cmk.CLUSTER_MEGA_LAUNCHES,
                        "wavefront": tk.LAUNCHES}
+                draws = rng.LAUNCHES
                 others = cmk.LAUNCHES + mk.LAUNCHES + got[
                     "wavefront" if engine == "cluster-mega"
                     else "cluster-mega"]
@@ -1017,12 +1076,19 @@ def run_slice3(card) -> dict:
                     raise AssertionError(f"config {cid} {engine}: rc {rc}")
                 steps = 16 // 4  # configs 7 and 8 render 4 spp a step
                 want = steps if engine == "cluster-mega" else 2 * 8 * steps
+                # a wavefront step draws 4 camera jitters, then a shade and
+                # an NEE draw a bounce; cluster-mega draws through no rng
+                want_draws = (0 if engine == "cluster-mega"
+                              else steps * (4 + 2 * 8))
                 print(f"config {cid} {engine}: kernel launches {got[engine]}"
-                      f" (expected {want}), other kernels {others}")
-                if got[engine] != want or others != 0:
+                      f" (expected {want}), threefry launches {draws} "
+                      f"(expected {want_draws}), other kernels {others}")
+                if (got[engine] != want or draws != want_draws
+                        or others != 0):
                     raise AssertionError(f"config {cid} {engine}: the CLI "
-                                         "did not run through its kernel")
+                                         "did not run through its kernels")
                 launches[engine] += got[engine]
+                launches["threefry"] += draws
                 stem = re.search(r"wrote (\S+)\.hdr", text).group(1)
                 img = im.read_exr_rgb(os.path.join(tmp, f"{stem}.exr"))
                 last = re.findall(r"\|\s*([\d.]+) spp/s \|\s*([\d.]+) "
@@ -1047,6 +1113,7 @@ def run_slice3(card) -> dict:
                                          "the cluster kernel")
     out["launches3"] = launches["cluster-mega"]
     out["launches4"] = launches["wavefront"]
+    out["launches_tf"] = launches["threefry"]
     out["main_path3"] = main_path
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -1354,6 +1421,98 @@ def run_slice4(card) -> dict:
     return out
 
 
+def threefry_draws(configid: int):
+    """The wavefront's threefry draws at a config's own size, as
+    ``render_batch`` makes them in a step's first bounce → [(label, key,
+    shape)]: the camera's jitter of one sample (n, 2), the shade draw
+    (R, 6) and NEE's light sample (R, 3), R = n · spp a step."""
+    from mcpt_torch import rng
+    from mcpt_torch.config import load_config
+    from mcpt_torch.render import integrator as integ
+
+    cfg = load_config(os.path.join(ROOT, "config.json"), configid)
+    n = cfg.width * cfg.height
+    r = n * max(1, cfg.spp_per_step)
+    key = rng.fold_in(rng.key(cfg.seed), cfg.seed)
+    _, kn_, ks_ = integ._bounce_keys(key, 0)
+    k_cam = rng.split(rng.split(key, max(1, cfg.spp_per_step))[0])[0]
+    return [(f"camera (n, 2), n = {n}", k_cam, (n, 2)),
+            (f"shade (R, 6), R = {r}", ks_, (r, 6)),
+            (f"NEE (R, 3), R = {r}", kn_, (r, 3))]
+
+
+def threefry_bound(n: int):
+    """The least time for ``n`` uniform draws: 4 B written each against
+    THREEFRY_OPS integer operations each → (ms, "bytes" or "operations")."""
+    t_bytes = 4 * n / H100_BYTES_PER_S
+    t_ops = THREEFRY_OPS * n / H100_INT32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_threefry(card) -> dict:
+    """Phase 20: the threefry kernel (``csrc/threefry.cu``) against its plain
+    version at config 8's own draws, bit for bit and timed, with its bound;
+    then uniforms and bits of config 9's largest draw (1080p, its spp a
+    step, 6 a ray) and ragged counts."""
+    import torch
+
+    from mcpt_torch import rng
+    from mcpt_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    phase(20, "the threefry kernel vs its plain version at config 8's own "
+              "draws (bit for bit), timed, with its bound")
+    counts = sass_counts(_build.library_path(), "threefry_kernel",
+                         ops=("IADD3", "LOP3", "SHF", "IMAD", "FADD"))
+    for name, c in (counts or {}).items():
+        print(f"threefry SASS {name}: {c}")
+    saved = rng.LAUNCHES
+    tf = {}
+
+    def same(a, b):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and torch.equal(a, b)
+
+    for label, k, shape in threefry_draws(8):
+        rng.uniform(k, shape, dev)  # warm-up
+        kern_a, a = cuda_ms(lambda: rng.uniform(k, shape, dev), 20)
+        with rng.plain_version_on_cuda():
+            plain, b = cuda_ms(lambda: rng.uniform(k, shape, dev), 3)
+        kern_b, _ = cuda_ms(lambda: rng.uniform(k, shape, dev), 20)
+        ms = (kern_a + kern_b) / 2
+        n = a.numel()
+        b_ms, b_by = threefry_bound(n)
+        ok = same(a, b)
+        print(f"  {label}: {n} draws; equal {ok}; kernel {kern_a:.4f} / "
+              f"{kern_b:.4f} ms, plain {plain:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}), {b_ms / ms:.1%} of it; {n / ms / 1e6:.2f} G "
+              f"draws/s | {card}")
+        if not ok:
+            raise AssertionError(f"threefry kernel disagrees with the plain "
+                                 f"version ({label})")
+        tf[label] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+    big = (1920 * 1080 * 4, 6)  # config 9's shade draw
+    k = rng.key(9)
+    for shape in (big, (0,), (1,), (1027,), (1027, 3)):
+        for fn in (rng.uniform, rng.bits):
+            a = fn(k, shape, dev)
+            with rng.plain_version_on_cuda():
+                b = fn(k, shape, dev)
+            if not same(a, b):
+                raise AssertionError(f"threefry {fn.__name__}{shape} "
+                                     "disagrees with the plain version")
+    print(f"  config 9's shade draw {big}, (0,), (1,), (1027,), (1027, 3): "
+          "uniform and bits equal to the plain version")
+    rng.LAUNCHES = saved  # comparison launches
+    # the reported row: the shade draw, the largest of a bounce
+    shade = next(v for key, v in tf.items() if key.startswith("shade"))
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return {"tf": dict(shade, max_abs_err=0.0)}
+
+
 def metric_lines(text) -> list:
     """The harness's triangle, SAH, EPO (without its wall time) and LCV
     lines."""
@@ -1362,15 +1521,17 @@ def metric_lines(text) -> list:
                                         "LCV:"))]
 
 
-def device_activity(prof):
+def device_activity(prof, ranges=()):
     """From a ``torch.profiler`` trace: (µs during which the card ran
     something — the union of its kernel, copy and set intervals —, {name:
-    (µs, count)} of those activities)."""
+    (µs, count)} of those activities).  ``ranges``: names of
+    ``record_function`` ranges, whose spans on the device timeline are not
+    activities."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.name in ranges:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         us, n = by_name.get(e.name, (0.0, 0))
@@ -1386,13 +1547,68 @@ def device_activity(prof):
     return busy, by_name
 
 
-def engine_ab(spp: int = 64, step: int = 4, prof_steps: int = 2) -> None:
-    """``--engine-ab``: the three large-scene engines on configs 7 and 8 at
-    their own size, each through its kernels: after a warm-up step,
-    ``spp`` samples in steps of ``step`` (Mrays/s, spp/s by the host clock
-    around synchronised work), then ``torch.profiler`` over ``prof_steps``
-    steps: the device's busy share of the window and the top device ops."""
+# the wavefront's parts, each a record_function range in --engine-ab's
+# profiler window (ranges nest: shade and NEE hold their own draws, NEE its
+# shadow rays, the resort its keys): (range, module path, attribute)
+WAVEFRONT_PARTS = (
+    ("threefry draws", "mcpt_torch.rng", "uniform"),
+    ("camera", "mcpt_torch.render.camera", "generate_rays_for_pixels"),
+    ("kernel 4 closest hit", "mcpt_torch.kernels.traverse_kernel",
+     "intersect_clusters"),
+    ("kernel 4 any hit", "mcpt_torch.kernels.traverse_kernel",
+     "occluded_clusters"),
+    ("shade", "mcpt_torch.render.shade", "shade"),
+    ("NEE", "mcpt_torch.render.integrator", "_nee_contribution"),
+    ("resort keys (Morton)", "mcpt_torch.render.integrator", "_sort_key"),
+    ("resort (keys, sort, gather)", "mcpt_torch.render.integrator",
+     "_resort_pool"),
+)
+
+
+@contextlib.contextmanager
+def wavefront_ranges():
+    """Wrap each of ``WAVEFRONT_PARTS`` in a ``record_function`` range of
+    its name while the block runs (the modules look them up at each call)."""
+    import importlib
+
     import torch
+
+    saved = []
+
+    def ranged(label, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return call
+
+    try:
+        for label, mod, attr in WAVEFRONT_PARTS:
+            m = importlib.import_module(mod)
+            saved.append((m, attr, getattr(m, attr)))
+            setattr(m, attr, ranged(label, getattr(m, attr)))
+        yield
+    finally:
+        for m, attr, fn in saved:
+            setattr(m, attr, fn)
+
+
+def engine_ab_turn(only=(), spp: int = 64, step: int = 4,
+                   prof_steps: int = 2) -> dict:
+    """One turn of ``--engine-ab`` on one checkout's ``mcpt_torch``: the
+    three large-scene engines on configs 7 and 8 at their own size, each
+    through its kernels (only the rows whose "config N engine" label holds
+    one of ``only``, all if empty).  After a warm-up step, ``spp`` samples
+    in steps of ``step`` (Mrays/s, spp/s by the host clock around
+    synchronised work); the peak of ``torch.cuda.max_memory_allocated``
+    over one step; then ``torch.profiler`` over ``prof_steps`` steps: the
+    device's busy share of the window, the top device ops, the
+    device-to-host copies a step (each one a wait of the host on the card),
+    and for the wavefront the device time of the torch ops in each of
+    ``WAVEFRONT_PARTS`` (a kernel launched through ctypes is not counted in
+    its range: kernel 4 and threefry stand in the top ops by name) →
+    {label: {metric: value}}."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mcpt_torch import rng
@@ -1401,8 +1617,11 @@ def engine_ab(spp: int = 64, step: int = 4, prof_steps: int = 2) -> None:
 
     dev = torch.device("cuda")
     card = smi()
-    print(f"nvidia-smi: {card}")
+    result = {}
     for cid in (7, 8):
+        if only and not any(f"config {cid}" in o or o in ("hybrid",
+                            "cluster-mega", "wavefront") for o in only):
+            continue
         cfg, scene, lights, cam, w, h = config_scene(cid, dev)
         cms = cmk.build_cluster_megascene(scene, lights)
         kw = step_kwargs(cfg)
@@ -1423,6 +1642,9 @@ def engine_ab(spp: int = 64, step: int = 4, prof_steps: int = 2) -> None:
                 spp=s, with_stats=True),
         }
         for name, render in engines.items():
+            label = f"config {cid} {name}"
+            if only and not any(o in label for o in only):
+                continue
             render(step, cfg.seed)  # warm-up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1431,30 +1653,86 @@ def engine_ab(spp: int = 64, step: int = 4, prof_steps: int = 2) -> None:
                 segs += float(render(step, cfg.seed + i * step * 7919)[1])
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            render(step, cfg.seed)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base_mem
+            ranges = (wavefront_ranges() if name == "wavefront"
+                      else contextlib.nullcontext())
+            with ranges, profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
                 t1 = time.perf_counter()
                 for i in range(prof_steps):
                     render(step, cfg.seed + i * 7919)
                 torch.cuda.synchronize()
                 window = time.perf_counter() - t1
-            busy_us, by_name = device_activity(prof)
-            print(f"config {cid} {w}x{h} {name}: {segs / dt / 1e6:.2f} "
-                  f"Mrays/s, {spp / dt:.2f} spp/s ({spp} spp in {dt:.3f} s, "
-                  f"{segs:.0f} segments); profiler: device busy "
-                  f"{busy_us / 1e6 / window:.1%} of {window * 1e3:.2f} ms "
-                  f"over {prof_steps} steps | {card}")
+            labels = dict.fromkeys(p for p, _, _ in WAVEFRONT_PARTS)
+            busy_us, by_name = device_activity(prof, labels)
+            d2h = sum(n for key, (_, n) in by_name.items() if "DtoH" in key)
             h2d = [(us, n) for key, (us, n) in by_name.items()
                    if "HtoD" in key]
-            print(f"    host-to-device copies in the window: "
-                  f"{sum(u for u, _ in h2d) / 1e3:.3f} ms, "
-                  f"{sum(n for _, n in h2d)} copies")
-            ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-            # the top six, and the port's own kernels wherever they rank
-            for i, (key, (us, count)) in enumerate(ranked):
-                if i < 6 or "mcpt::" in key:
-                    print(f"    {us / 1e3:9.2f} ms  {us / 1e4 / window:5.1f}%"
-                          f"  {count:6d}x  {key[:90]}")
+            row = dict(mrays=segs / dt / 1e6, spp_per_s=spp / dt,
+                       busy=busy_us / 1e6 / window, window_ms=window * 1e3,
+                       peak_gib=peak / 2**30, d2h=d2h / prof_steps,
+                       h2d_ms=sum(u for u, _ in h2d) / 1e3,
+                       top=[(key[:90], us / 1e3, count) for key, (us, count)
+                            in sorted(by_name.items(),
+                                      key=lambda kv: -kv[1][0])[:8]],
+                       mcpt=[(key[:90], us / 1e3, count)
+                             for key, (us, count) in by_name.items()
+                             if "mcpt::" in key])
+            if name == "wavefront":
+                parts = {}
+                for e in prof.events():
+                    if e.device_type == DeviceType.CPU and e.name in labels:
+                        parts[e.name] = (parts.get(e.name, 0.0)
+                                         + e.device_time_total / 1e3)
+                row["parts_ms"] = parts
+            print(f"config {cid} {w}x{h} {name}: {row['mrays']:.2f} Mrays/s, "
+                  f"{row['spp_per_s']:.2f} spp/s ({spp} spp in {dt:.3f} s, "
+                  f"{segs:.0f} segments); peak memory over a step "
+                  f"{row['peak_gib']:.3f} GiB; profiler: device busy "
+                  f"{row['busy']:.1%} of {window * 1e3:.2f} ms over "
+                  f"{prof_steps} steps; device-to-host copies (each a host "
+                  f"wait) {row['d2h']:.1f} a step; HtoD "
+                  f"{row['h2d_ms']:.3f} ms | {card}")
+            result[label] = row
+    return result
+
+
+def engine_ab(trees, only=()) -> None:
+    """``--engine-ab [TREE ...]``: ``engine_ab_turn`` of this checkout, and
+    of the checkouts at each TREE in turns (``run_turns``); prints every
+    turn's rows, then the means and, a turn each, the top device ops and
+    the wavefront's parts."""
+    card = smi()
+    print(f"nvidia-smi: {card}")
+    turns = run_turns("--engine-ab-turn", trees, only)
+    labels = dict.fromkeys(k for rs in turns.values() for r in rs for k in r)
+    for label in labels:
+        print(f"{label} | {card}")
+        for name, rs in turns.items():
+            rows = [r[label] for r in rs if label in r]
+            if not rows:
+                continue
+            print(f"  {name}: Mrays/s " + " / ".join(
+                f"{x['mrays']:.2f}" for x in rows) + "; spp/s " + " / ".join(
+                f"{x['spp_per_s']:.2f}" for x in rows) + "; busy " +
+                " / ".join(f"{x['busy']:.1%}" for x in rows) + "; peak GiB "
+                + " / ".join(f"{x['peak_gib']:.3f}" for x in rows) +
+                "; DtoH copies a step " + " / ".join(f"{x['d2h']:.1f}"
+                                                      for x in rows))
+            x = rows[0]
+            for key, ms, count in x["top"]:
+                print(f"      {ms:9.2f} ms {ms / x['window_ms']:6.1%} "
+                      f"{count:6d}x  {key}")
+            for key, ms, count in x["mcpt"]:
+                print(f"      {ms:9.2f} ms {ms / x['window_ms']:6.1%} "
+                      f"{count:6d}x  {key}  (a port kernel)")
+            for part, ms in x.get("parts_ms", {}).items():
+                print(f"      {ms:9.2f} ms {ms / x['window_ms']:6.1%}  "
+                      f"part: {part}")
 
 
 def crossover(spp: int = 16, step: int = 4) -> None:
@@ -1618,165 +1896,228 @@ def build_ab(variants: dict, gate: bool, reps: int = 10) -> None:
                 raise AssertionError(f"{label} {name}: not {first}'s bits")
 
 
-def device_ms(fn, kernel: str, n: int):
-    """``fn()`` called ``n`` times under ``torch.profiler``, one launch of
-    ``kernel`` a call → (device ms a launch of the kernels whose name holds
-    ``kernel``, so the callers' host work does not count; the last call's
-    result)."""
+def device_ms(fn, kernel, n: int):
+    """``fn()`` called ``n`` times under ``torch.profiler`` → (device ms a
+    launch of the kernels whose name holds ``kernel``, one launch a call, so
+    the callers' host work does not count; device ms a call of every device
+    activity in the window, the torch ops around the kernel included; the
+    last call's result).  ``kernel`` None: the first is the second."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            out = fn()
+    # a window of short launches can come back without its device events
+    # (seen with the threefry kernel's ~8 µs draws): it is taken again
+    for _ in range(3):
         torch.cuda.synchronize()
-    launches = [e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and kernel in e.name]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                out = fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if len(device) >= n // 2:
+            break
+    call_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / n
+    if kernel is None:
+        return call_ms, call_ms, out
+    launches = [e.time_range.elapsed_us() for e in device
+                if kernel in e.name]
     # the tracer may miss a window's first launch; more than n is a second
     # kernel of that name
     if not n // 2 <= len(launches) <= n:
         raise AssertionError(f"{len(launches)} launches of {kernel} in {n} "
                              "calls")
-    return sum(launches) / 1e3 / len(launches), out
+    return sum(launches) / 1e3 / len(launches), call_ms, out
 
 
-def kernel_ab_turn(reps: int = 10) -> dict:
+def kernel_ab_turn(only=(), reps: int = 10) -> dict:
     """One turn of ``--kernel-ab``, run by ``kernel_ab`` in a process of its
     own on the ``mcpt_torch`` of one checkout: that checkout's own sources,
     build and wrappers, called through the entry points a user calls, at the
     main path's shapes.  Kernel 3 at config 7's 4-spp regen step, kernel 2
     at config 8's 3,686,400-ray pools of depths 0 and 1, kernel 4 on phase
     14's pools (``wavefront_pools``: closest hit, and any hit at random
-    limits), kernel 1 at configs 0 and 6's steps.  Each workload: a warm-up
+    limits), kernel 1 at configs 0 and 6's steps, the threefry draws of a
+    config-8 bounce (``threefry_draws``: ``rng.uniform`` on the card, which
+    before the threefry kernel ran the plain version).  Only the workloads
+    whose label holds one of ``only`` (all if empty); each group's inputs
+    are built only if one of its workloads runs.  Each workload: a warm-up
     call, then ``reps`` calls (kernel 2 on a fresh copy of its pool each)
     under ``torch.profiler``; its time is the device time of the kernel's
-    own launches, so the wrappers' host work does not count → {workload:
-    {"ms": ms a call, "sha256": digest of the last call's outputs}}."""
+    own launches, so the wrappers' host work does not count, and its call
+    time every device op of the call (kernel 4's torch epilogue, every op of
+    a plain threefry draw) → {workload: {"ms": ms a call, "call_ms": ms,
+    "sha256": digest of the last call's outputs}}."""
     import hashlib
 
     import torch
 
+    from mcpt_torch import rng
     from mcpt_torch.kernels import cluster_megakernel as cmk
     from mcpt_torch.kernels import megakernel as mk
     from mcpt_torch.kernels import traverse_kernel as tk
 
     dev = torch.device("cuda")
-    cfg, scene, lights, cam, w, h = config_scene(7, dev)
-    cms7 = cmk.build_cluster_megascene(scene, lights)
-    kw7 = step_kwargs(cfg)
-    cms8, cam8, w8, h8, kw8 = config_hybrid_step(8, dev)
-    bkw = {k: kw8[k] for k in ("max_depth", "rr", "rr_start", "nee", "mis",
-                               "clamp")}
-    n_pool = -(-(w8 * h8 * kw8["spp"]) // cmk.BLKT) * cmk.BLKT
-    state0, rid0 = cmk.camera_pool(cms8, cam8, w8, h8, kw8["spp"],
-                                   kw8["seed"], n_pool)
-    s1 = state0.clone()
-    cmk.fused_bounce(cms8, s1, rid0, kw8["seed"], 0, **bkw)
-    key = cmk._hybrid_sort_key(*s1[:6], s1[cmk.ALIVE], cms8.bb_lo,
-                               cms8.bb_inv_ext,
-                               cmk.resolve_key_mode("auto", kw8["compact"]))
-    order1 = torch.sort(key, stable=True).indices
-    pools = {0: (state0, rid0), 1: (s1.index_select(1, order1),
-                                    rid0[order1])}
-    del s1
-    megas = {cid: main_path_step(cid, dev) for cid in (0, 6, 1)}
-    cl8, wrays = wavefront_pools(dev)
-    rays = {depth: r for depth, *r in wrays}
 
-    def k2(depth):
-        state, rid = pools[depth]
+    def k3():
+        cfg, scene, lights, cam, w, h = config_scene(7, dev)
+        cms7 = cmk.build_cluster_megascene(scene, lights)
+        kw7 = step_kwargs(cfg)
+        call = (lambda _: cmk.render_cluster_mega(cms7, cam, w, h, **kw7))
+        return {"kernel 3, config 7 step": ("render_cluster_kernel",
+                                            (call, None), reps)}
 
-        def call(x):
-            return x, cmk.fused_bounce(cms8, x, rid, kw8["seed"], depth,
-                                       **bkw)
-        return call, state.clone
+    def k2():
+        cms8, cam8, w8, h8, kw8 = config_hybrid_step(8, dev)
+        bkw = {k: kw8[k] for k in ("max_depth", "rr", "rr_start", "nee",
+                                   "mis", "clamp")}
+        n_pool = -(-(w8 * h8 * kw8["spp"]) // cmk.BLKT) * cmk.BLKT
+        state0, rid0 = cmk.camera_pool(cms8, cam8, w8, h8, kw8["spp"],
+                                       kw8["seed"], n_pool)
+        s1 = state0.clone()
+        cmk.fused_bounce(cms8, s1, rid0, kw8["seed"], 0, **bkw)
+        key = cmk._hybrid_sort_key(*s1[:6], s1[cmk.ALIVE], cms8.bb_lo,
+                                   cms8.bb_inv_ext,
+                                   cmk.resolve_key_mode("auto",
+                                                        kw8["compact"]))
+        order1 = torch.sort(key, stable=True).indices
+        pools = {0: (state0, rid0), 1: (s1.index_select(1, order1),
+                                        rid0[order1])}
+        del s1
 
-    def k4(depth, any_hit):
-        o, d, active, lim = rays[depth]
+        def bounce(depth):
+            state, rid = pools[depth]
 
-        def call(_):
-            if any_hit:
-                return (tk.occluded_clusters(cl8, o, d, lim, active=active),)
-            return tuple(tk.intersect_clusters(cl8, o, d, active=active))
-        return call, None
+            def call(x):
+                return x, cmk.fused_bounce(cms8, x, rid, kw8["seed"], depth,
+                                           **bkw)
+            return call, state.clone
+        return {f"kernel 2, config 8 pool depth {d}": (
+            "fused_bounce_kernel", bounce(d), 2 * reps) for d in (0, 1)}
 
-    def k1(cid):
-        mega, camm, wm, hm, kwm = megas[cid]
-        return (lambda _: mk.render_mega(mega, camm, wm, hm, **kwm)), None
+    def k4():
+        cl8, wrays = wavefront_pools(dev)
+        rays = {depth: r for depth, *r in wrays}
 
-    k3 = (lambda _: cmk.render_cluster_mega(cms7, cam, w, h, **kw7)), None
-    work = {
-        "kernel 3, config 7 step": ("render_cluster_kernel", k3, reps),
-        "kernel 2, config 8 pool depth 0": ("fused_bounce_kernel", k2(0),
+        def walk(depth, any_hit):
+            o, d, active, lim = rays[depth]
+
+            def call(_):
+                if any_hit:
+                    return (tk.occluded_clusters(cl8, o, d, lim,
+                                                 active=active),)
+                return tuple(tk.intersect_clusters(cl8, o, d, active=active))
+            return call, None
+        return {f"kernel 4, config 8 pool depth {depth}, "
+                f"{'any' if any_hit else 'closest'} hit": (
+                    "traverse_kernel", walk(depth, any_hit), 2 * reps)
+                for depth in (0, 1) for any_hit in (False, True)}
+
+    def k1():
+        megas = {cid: main_path_step(cid, dev) for cid in (0, 6, 1)}
+
+        def step(cid):
+            mega, camm, wm, hm, kwm = megas[cid]
+            return (lambda _: mk.render_mega(mega, camm, wm, hm, **kwm)), None
+        return {"kernel 1, config 0 step": ("render_mega_kernel", step(0),
                                             2 * reps),
-        "kernel 2, config 8 pool depth 1": ("fused_bounce_kernel", k2(1),
-                                            2 * reps)}
-    for depth in (0, 1):
-        for any_hit in (False, True):
-            work[f"kernel 4, config 8 pool depth {depth}, "
-                 f"{'any' if any_hit else 'closest'} hit"] = (
-                "traverse_kernel", k4(depth, any_hit), 2 * reps)
-    work["kernel 1, config 0 step"] = ("render_mega_kernel", k1(0), 2 * reps)
-    work["kernel 1, config 6 step"] = ("render_mega_kernel", k1(6),
-                                       max(2, reps // 3))
-    work["kernel 1, config 1 step"] = ("render_mega_kernel", k1(1), 5 * reps)
+                "kernel 1, config 6 step": ("render_mega_kernel", step(6),
+                                            max(2, reps // 3)),
+                "kernel 1, config 1 step": ("render_mega_kernel", step(1),
+                                            5 * reps)}
+
+    def threefry():
+        def draw(k, shape):
+            return (lambda _: (rng.uniform(k, shape, dev),)), None
+        return {f"threefry, config 8 {label}": (None, draw(k, shape),
+                                                2 * reps)
+                for label, k, shape in threefry_draws(8)}
+
+    groups = {"kernel 3": k3, "kernel 2": k2, "kernel 4": k4, "kernel 1": k1,
+              "threefry": threefry}
     result = {}
-    for label, (kernel, (fn, prep), n) in work.items():
-        fn(prep() if prep else None)  # warm-up
-        ms, out = device_ms(lambda: fn(prep() if prep else None), kernel, n)
-        digest = hashlib.sha256()
-        for t in out:
-            digest.update(torch.as_tensor(t).cpu().numpy().tobytes())
-        result[label] = {"ms": ms, "sha256": digest.hexdigest()}
-        del out
+    for group, make in groups.items():
+        # the labels of a group all start with its name
+        if only and not any(o in group or group in o for o in only):
+            continue
+        for label, (kernel, (fn, prep), n) in make().items():
+            if only and not any(o in label for o in only):
+                continue
+            fn(prep() if prep else None)  # warm-up
+            ms, call_ms, out = device_ms(lambda: fn(prep() if prep else None),
+                                         kernel, n)
+            digest = hashlib.sha256()
+            for t in out:
+                digest.update(torch.as_tensor(t).cpu().numpy().tobytes())
+            result[label] = {"ms": ms, "call_ms": call_ms,
+                             "sha256": digest.hexdigest()}
+            del out
     return result
 
 
-def kernel_ab(trees) -> dict:
-    """``--kernel-ab TREE [TREE ...]``: kernels 1-4 of this checkout against
-    those of the checkouts at each TREE, at the main path's shapes.  Each
-    turn is one process that runs ``kernel_ab_turn`` on one checkout's own
-    ``mcpt_torch``, so every checkout builds its own sources and declares
-    its own C interface; only the public entry points must be common.  The
-    turns run in the order TREE..., this, this, ...TREE reversed.  Prints
-    each turn's ms a call of every workload, the means, and whether each
-    checkout's outputs are the first TREE's bits → {workload: {name: mean
-    ms}}."""
-    card = smi()
-    print(f"nvidia-smi: {card}")
+def run_turns(flag: str, trees, only) -> dict:
+    """Run ``chip_smoke.py FLAG CHECKOUT`` once per turn, in the order
+    TREE..., this, this, ...TREE reversed, each in a process of its own on
+    that checkout's ``mcpt_torch``; a turn prints its lines and, last, one
+    JSON object → {checkout: [each turn's object]}.  A turn that fails is
+    reported and left out."""
     order = [*trees, "this", "this", *reversed(trees)]
     turns = {name: [] for name in dict.fromkeys(order)}
     for name in order:
         root = ROOT if name == "this" else os.path.abspath(name)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--kernel-ab-turn",
-             root], capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
-            raise RuntimeError(f"the kernel A/B turn of {name} failed "
-                               f"({proc.returncode})")
-        turns[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            [sys.executable, os.path.abspath(__file__), flag, root,
+             *(["--only", *only] if only else [])],
+            capture_output=True, text=True, timeout=1200)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:],
+                  file=sys.stderr)
+            print(f"turn {name}: FAILED ({proc.returncode})", flush=True)
+            continue
+        print("\n".join(lines[:-1]))
+        turns[name].append(json.loads(lines[-1]))
         print(f"turn {name}: {time.perf_counter() - t0:.1f} s", flush=True)
-    first = turns[trees[0]][0]
+    return {name: rs for name, rs in turns.items() if rs}
+
+
+def kernel_ab(trees, only=()) -> dict:
+    """``--kernel-ab TREE [TREE ...]``: kernels 1-4 and threefry of this
+    checkout against those of the checkouts at each TREE, at the main
+    path's shapes (``run_turns`` of ``kernel_ab_turn``; only the public
+    entry points must be common).  Prints each turn's kernel ms and call
+    ms of every workload, the means, and whether each checkout's outputs
+    are the first TREE's bits → {workload: {name: mean ms}}."""
+    card = smi()
+    print(f"nvidia-smi: {card}")
+    turns = run_turns("--kernel-ab-turn", trees, only)
+    first_name = next(iter(turns))
+    first = turns[first_name][0]
     result = {}
     for label in first:
         means = {name: sum(r[label]["ms"] for r in rs) / len(rs)
-                 for name, rs in turns.items()}
+                 for name, rs in turns.items() if label in rs[0]}
+        calls = {name: sum(r[label]["call_ms"] for r in rs) / len(rs)
+                 for name, rs in turns.items() if label in rs[0]}
         result[label] = means
-        print(f"{label} (kernel ms a call, turns in the order "
-              f"{', '.join(order)}) | {card}")
+        print(f"{label} (kernel ms a call; every device op of the call, ms) "
+              f"| {card}")
         for name, rs in turns.items():
+            if label not in rs[0]:
+                continue
             same = all(r[label]["sha256"] == first[label]["sha256"]
                        for r in rs)
-            rel = means[name] / means[trees[0]] - 1
+            rel = means[name] / means[first_name] - 1
+            rel_call = calls[name] / calls[first_name] - 1
             print(f"  {name}: " + " / ".join(f"{r[label]['ms']:.3f}"
                                              for r in rs)
-                  + f"  mean {means[name]:.3f}  ({rel:+.1%} vs "
-                  f"{trees[0]})  {trees[0]}'s bits: {same}")
+                  + f"  mean {means[name]:.3f} ({rel:+.1%}); call "
+                  + " / ".join(f"{r[label]['call_ms']:.3f}" for r in rs)
+                  + f"  mean {calls[name]:.3f} ({rel_call:+.1%} vs "
+                  f"{first_name}); {first_name}'s bits: {same}")
     return result
 
 
@@ -1793,16 +2134,22 @@ def main(argv=None) -> int:
     ap.add_argument("--crossover", action="store_true",
                     help="only time the megakernel against the hybrid on "
                          "boxfield(n), 724-6004 tris")
-    ap.add_argument("--engine-ab", action="store_true",
+    ap.add_argument("--engine-ab", metavar="TREE", nargs="*",
                     help="only time the three large-scene engines (hybrid, "
                          "cluster-mega, wavefront) on configs 7 and 8 at 64 "
-                         "spp, with a torch.profiler window each")
+                         "spp, with a torch.profiler window each, of this "
+                         "checkout and of those at each TREE, in turns")
     ap.add_argument("--kernel-ab", metavar="TREE", nargs="+",
-                    help="only time kernels 1-4 against those of the "
-                         "checkouts at each TREE, in turns, at the main "
-                         "path's shapes")
+                    help="only time kernels 1-4 and threefry against those "
+                         "of the checkouts at each TREE, in turns, at the "
+                         "main path's shapes")
+    ap.add_argument("--only", metavar="LABEL", nargs="+", default=(),
+                    help="with --kernel-ab or --engine-ab: only the "
+                         "workloads whose label holds one of these")
     ap.add_argument("--kernel-ab-turn", metavar="CHECKOUT",
                     help=argparse.SUPPRESS)  # one turn of --kernel-ab
+    ap.add_argument("--engine-ab-turn", metavar="CHECKOUT",
+                    help=argparse.SUPPRESS)  # one turn of --engine-ab
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1818,12 +2165,14 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no mcpt_torch/ beside {__file__}; run it from "
               "the root of a checkout", file=sys.stderr)
         return 1
-    if args.kernel_ab_turn:
+    turn = args.kernel_ab_turn or args.engine_ab_turn
+    if turn:
         # this turn's package is the one of the checkout it times
-        sys.path.insert(0, os.path.abspath(args.kernel_ab_turn))
+        sys.path.insert(0, os.path.abspath(turn))
         import mcpt_torch
-        print(f"kernel A/B turn on {mcpt_torch.__file__}", file=sys.stderr)
-        print(json.dumps(kernel_ab_turn()))
+        print(f"A/B turn on {mcpt_torch.__file__}", file=sys.stderr)
+        fn = kernel_ab_turn if args.kernel_ab_turn else engine_ab_turn
+        print(json.dumps(fn(args.only)))
         return 0
     sys.path.insert(0, ROOT)
     try:
@@ -1842,11 +2191,11 @@ def main(argv=None) -> int:
         if args.crossover:
             crossover()
             return 0
-        if args.engine_ab:
-            engine_ab()
+        if args.engine_ab is not None:
+            engine_ab(args.engine_ab, args.only)
             return 0
         if args.kernel_ab:
-            kernel_ab(args.kernel_ab)
+            kernel_ab(args.kernel_ab, args.only)
             return 0
         report = run()
     except Exception:  # noqa: BLE001 - any failed phase fails the run
@@ -1874,8 +2223,13 @@ def main(argv=None) -> int:
         # launches: measure_fp32_peak's (the render path launches none)
         dict(name="fma_peak", source="mcpt_torch/csrc/fma_peak.cu",
              replaces="mcpt/runtime.py:184", **report["k5"]),
+        # not a TPU kernel: the jax.random draws mcpt makes through XLA
+        dict(name="threefry", source="mcpt_torch/csrc/threefry.cu",
+             replaces="jax.random in mcpt/render/shade.py:188",
+             launches=report["launches_tf"], **report["tf"]),
     ]
-    # no single PyTorch call computes a path, a closest hit or an FMA chain
+    # no single PyTorch call computes a path, a closest hit, an FMA chain
+    # or threefry (torch.rand is Philox)
     print(json.dumps({"kernels": [dict(k, route="cuda", library_ms=None)
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

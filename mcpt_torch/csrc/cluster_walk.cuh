@@ -48,7 +48,13 @@
 //     wnodes and tri16.  16-bit entries left more L1 and were 2-16% faster,
 //     but they hold only 65,536 stack codes (~1.1-1.6 M triangles), and
 //     every table collapse_wide accepts must walk; the 128-entry stack in
-//     local memory was within 2%.
+//     local memory was within 2%.  The wavefront's traversal (traverse.cu)
+//     keeps only its first kShared entries there and the rest in a
+//     thread-local array (ClusterWalk<kShared>): with the whole stack
+//     shared, shared memory held it to 32 warps an SM, with 16 entries
+//     its 48-51 registers allow 36-40 (1.9-6.2% faster, PERF.md);
+//     kernels 2 and 3 are held to 32 warps by 64 registers anyway and
+//     keep every entry shared.
 //
 // Hit rule (the plain walk_reference's): the closest hit keeps the lowest t
 // and, on an exact tie, the lowest tri16 row; a child is pruned only when its
@@ -70,6 +76,9 @@
 namespace mcpt {
 
 typedef int StackEntry;  // a wide node, or n_wide + a cluster id
+// the most entries a walk may get: bvh/cluster.py STACK_CAP (collapse_wide
+// refuses deeper trees)
+constexpr int kMaxStack = 128;
 
 // The next work item of a persistent loop: a warp-aggregated atomicAdd on
 // *next (zeroed by the wrapper before the launch) by the lanes that ask
@@ -84,7 +93,11 @@ __device__ __forceinline__ int fetch_next(int* next) {
   return base + __popc(mask & ((1u << me) - 1u));
 }
 
-struct ClusterIsect {
+// kShared: the stack entries kept in the thread's shared-memory column;
+// entries kShared.. go to `spill`, a thread-local array of kMaxStack -
+// kShared (unused, and may be null, when kShared is kMaxStack)
+template <int kShared>
+struct ClusterWalk {
   const float* wnodes;
   const float* tri16;
   const int* live;
@@ -92,6 +105,15 @@ struct ClusterIsect {
   StackEntry* stack;  // this thread's entry i is stack[i * stride]
   int stride, cap;    // cap: entries a thread may push (7 * depth + 8)
   int* err;
+  StackEntry* spill;
+
+  __device__ __forceinline__ StackEntry& entry(int i) const {
+    if constexpr (kShared >= kMaxStack) {
+      return stack[i * stride];
+    } else {
+      return i < kShared ? stack[i * stride] : spill[i - kShared];
+    }
+  }
 
   __device__ __forceinline__ static float safe_inv(float x) {
     const float tiny = MCPT_F(1e-30);
@@ -112,7 +134,7 @@ struct ClusterIsect {
   }
 
   __device__ __forceinline__ int pop(int& sp) const {
-    return sp > 0 ? stack[--sp * stride] : -1;
+    return sp > 0 ? entry(--sp) : -1;
   }
 
   // Slab-test the 8 children of wide node `node` against bound `b` and push
@@ -154,7 +176,7 @@ struct ClusterIsect {
         *err = 1;
         return false;
       }
-      stack[sp++ * stride] = static_cast<int>(__ldg(w + 48 + k));
+      entry(sp++) = static_cast<int>(__ldg(w + 48 + k));
     }
     return true;
   }
@@ -240,5 +262,8 @@ struct ClusterIsect {
     return occ;
   }
 };
+
+// kernels 2 and 3: the whole stack in shared memory
+typedef ClusterWalk<kMaxStack> ClusterIsect;
 
 }  // namespace mcpt

@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mcpt_torch"
 SOURCES = ("megakernel.cu", "fused_bounce.cu", "cluster_mega.cu",
-           "traverse.cu", "fma_peak.cu")
+           "traverse.cu", "fma_peak.cu", "threefry.cu")
 # -fmad=false: no contracted multiply-adds, so the kernels round as the plain
 # PyTorch versions do (see csrc/bounce_core.cuh); no fast math either
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -155,7 +155,7 @@ def load(flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
         + [ptr] * 5 + [ptr])
     lib.mcpt_render_cluster.restype = i32
     lib.mcpt_traverse.argtypes = (
-        [ptr] * 3 + [i32] * 3 + [ptr] * 4 + [f32] + [i32] + [ptr] * 4
+        [ptr] * 4 + [i32] * 3 + [ptr] * 4 + [f32] + [i32] + [ptr] * 5
         + [i32] + [ptr, ptr])
     lib.mcpt_traverse.restype = i32
     # resident blocks an SM at the launch's block size and shared memory
@@ -172,6 +172,9 @@ def load(flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
         fn.restype = i32
     lib.mcpt_fma_chain.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.mcpt_fma_chain.restype = i32
+    lib.mcpt_threefry.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
+                                  ctypes.c_uint64, i32, ptr, ptr]
+    lib.mcpt_threefry.restype = i32
     lib.mcpt_error_string.argtypes = [i32]
     lib.mcpt_error_string.restype = ctypes.c_char_p
     return lib

@@ -8,13 +8,16 @@ Port of ``mcpt/pallas/traverse_kernel.py`` (``_traverse_jit`` at :303, its
 - ``intersect_clusters`` → ``types.Hit``: the closest hit in
   (t_min, t_max), ``tri = tri_map[row]``, the normal from
   ``tri16[row, 12:15]``; t = inf and tri = -1 on a miss or an inactive ray;
-- ``occluded_clusters`` → bool: a hit in (t_min, t_max), ``& active``.
+- ``occluded_clusters`` → bool: a hit in (t_min, t_max) on an active ray.
 
 Three layers: ``traverse_reference``, the plain version (``walk_reference``
-of the hybrid engine, one stack per ray, run on the active rays only);
-``_traverse_cuda``, which launches ``mcpt_torch/csrc/traverse.cu``; and the
-dispatch in ``_traverse``: CPU tensors run the plain version, CUDA tensors
-launch the kernel, anything else raises.  Nothing falls back.
+of the hybrid engine, one stack per ray, run on the active rays only), with
+``hit_from_rows`` building its ``Hit``; ``_traverse_cuda``, which launches
+``mcpt_torch/csrc/traverse.cu`` (its closest hit writes the ``Hit`` itself);
+and the dispatch in ``_on_kernel``: CPU tensors run the plain version, CUDA
+tensors launch the kernel, anything else raises.  Nothing falls back.  The
+kernel's stack-overflow flag is read back after each launch, or once at the
+end of an ``overflow_checked_once`` block (the wavefront's bounce loops).
 
 Two TPU workarounds stay behind: the 4096-row segment loop (scoped VMEM)
 and the 2e38 origin poison of inactive lanes (a block walks the union of
@@ -38,6 +41,48 @@ _MISS = 3.0e38  # t of a miss in the raw outputs (the kernels' kMiss)
 # read by chip_smoke.py to show the main path used the kernel
 LAUNCHES = 0
 _PLAIN_ON_CUDA = False
+# inside overflow_checked_once(): {device: (flag, stack entries)}, the one
+# device int each launch ORs its stack-overflow flag into
+_DEFERRED: dict | None = None
+
+
+@contextlib.contextmanager
+def overflow_checked_once():
+    """Inside this block the launches set one shared stack-overflow flag a
+    device instead of each reading its own back, and the block's end reads
+    it once and raises on an overflow: the host never waits on a walk in
+    between, so it can queue the work around the walks.  ``trace`` and
+    ``trace_compacted`` wrap their bounce loops in it (16 reads a wavefront
+    step become one).  Outside it every launch reads its flag back and
+    raises at once.  A nested block leaves the reading to the outer one."""
+    global _DEFERRED
+    if _DEFERRED is not None:
+        yield
+        return
+    _DEFERRED = {}
+    try:
+        yield
+        flags = _DEFERRED
+    finally:
+        _DEFERRED = None
+    for err, cap in flags.values():
+        _raise_on_overflow(err, cap)
+
+
+def _raise_on_overflow(err: torch.Tensor, cap: int) -> None:
+    if int(err.item()) != 0:
+        raise RuntimeError(f"traverse: stack overflow (> {cap} entries); "
+                           "collapse_wide should have rejected this tree")
+
+
+def _overflow_flag(dev, cap: int) -> torch.Tensor:
+    """The flag a launch sets on a stack overflow: the open
+    ``overflow_checked_once`` block's for ``dev``, else a fresh one."""
+    if _DEFERRED is None:
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    if dev not in _DEFERRED:
+        _DEFERRED[dev] = (torch.zeros(1, dtype=torch.int32, device=dev), cap)
+    return _DEFERRED[dev][0]
 
 
 @contextlib.contextmanager
@@ -92,9 +137,12 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
 
 def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
                    t_min: float = 1e-4):
-    """Launch ``mcpt_torch/csrc/traverse.cu`` on the current stream; the
-    outputs are ``traverse_reference``'s.  Raises on a refused launch and on
-    the kernel's stack-overflow flag (read back, so the call synchronises)."""
+    """Launch ``mcpt_torch/csrc/traverse.cu`` on the current stream.  Any
+    hit → (R,) bool, ``traverse_reference``'s; closest hit → ``types.Hit``,
+    ``intersect_clusters``'s (``limit`` may be None: no limit).  Raises on
+    a refused launch and on the kernel's stack-overflow flag: read back at
+    once (the call then synchronises), or inside ``overflow_checked_once``
+    at the block's end."""
     global LAUNCHES
     from mcpt_torch.kernels import _build
 
@@ -103,48 +151,52 @@ def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
     _check("origin", origin, torch.float32, (r, 3))
     _check("direction", direction, torch.float32, (r, 3))
     _check("active", active, torch.bool, (r,))
-    _check("limit", limit, torch.float32, (r,))
-    for t in (direction, active, limit):
-        if t.device != dev:
+    if limit is None and any_hit:
+        raise ValueError("the any hit needs a limit a ray")
+    if limit is not None:
+        _check("limit", limit, torch.float32, (r,))
+    for t in (direction, active, limit, cl.tri_map):
+        if t is not None and t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
     cap = cmk._check_walk_tables(cl, dev)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    _check("tri_map", cl.tri_map, torch.int32, (cl.tri16.shape[0],))
+    deferred = _DEFERRED is not None
+    err = _overflow_flag(dev, cap)
     if any_hit:
         occ = torch.empty((r,), dtype=torch.bool, device=dev)
-        outs = (None, None, None, occ.data_ptr())
+        outs = (None, None, None, None, occ.data_ptr())
     else:
-        t_out = torch.empty((r,), dtype=torch.float32, device=dev)
-        row = torch.empty((r,), dtype=torch.int32, device=dev)
-        normal = torch.empty((r, 3), dtype=torch.float32, device=dev)
-        outs = (t_out.data_ptr(), row.data_ptr(), normal.data_ptr(), None)
+        hit = Hit(t=torch.empty((r,), dtype=torch.float32, device=dev),
+                  tri=torch.empty((r,), dtype=torch.int32, device=dev),
+                  point=torch.empty((r, 3), dtype=torch.float32, device=dev),
+                  normal=torch.empty((r, 3), dtype=torch.float32,
+                                     device=dev))
+        outs = (*(x.data_ptr() for x in hit), None)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mcpt_traverse(
             cl.wnodes.data_ptr(), cl.tri16.data_ptr(), cl.live.data_ptr(),
-            cl.wnodes.shape[0], cl.leaf_size, cap,
+            cl.tri_map.data_ptr(), cl.wnodes.shape[0], cl.leaf_size, cap,
             origin.data_ptr(), direction.data_ptr(), active.data_ptr(),
-            limit.data_ptr(), float(t_min), int(any_hit), *outs, r,
-            err.data_ptr(), ctypes.c_void_p(stream))
+            None if limit is None else limit.data_ptr(), float(t_min),
+            int(any_hit), *outs, r, err.data_ptr(), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"traverse launch failed: CUDA error {rc} "
                            f"({lib.mcpt_error_string(rc).decode()})")
     LAUNCHES += 1
-    if int(err.item()) != 0:
-        raise RuntimeError(f"traverse: stack overflow (> {cap} entries); "
-                           "collapse_wide should have rejected this tree")
-    return occ if any_hit else (t_out, row, normal)
+    if not deferred:
+        _raise_on_overflow(err, cap)
+    return occ if any_hit else hit
 
 
-def _traverse(cl, origin, direction, active, limit, any_hit, t_min):
+def _on_kernel(origin) -> bool:
+    """True: launch the kernel; False: run the plain version."""
     kind = origin.device.type
     if kind == "cpu" or (kind == "cuda" and _PLAIN_ON_CUDA):
-        return traverse_reference(cl, origin, direction, active, limit,
-                                  any_hit, t_min)
+        return False
     if kind == "cuda":
-        return _traverse_cuda(cl, origin.contiguous(),
-                              direction.contiguous(), active.contiguous(),
-                              limit.contiguous(), any_hit, t_min)
+        return True
     raise ValueError(f"cluster traversal runs on cpu or cuda tensors, not "
                      f"{kind}")
 
@@ -162,15 +214,11 @@ def _active(active, r: int, dev) -> torch.Tensor:
     return active.to(torch.bool)
 
 
-def intersect_clusters(cl, origin, direction, active=None, t_max=None,
-                       t_min: float = 1e-4) -> Hit:
-    """Closest hit over the cluster BVH ``cl`` → ``types.Hit``; a drop-in
-    for ``traverse.intersect_bvh`` on clustered scenes.  Ties keep the
-    lowest (t, tri16 row), so the answer is brute force over ``tri16``."""
-    r = origin.shape[0]
-    dev = origin.device
-    t, row, normal = _traverse(cl, origin, direction, _active(active, r, dev),
-                               _limits(t_max, r, dev), False, t_min)
+def hit_from_rows(cl, origin, direction, t, row, normal) -> Hit:
+    """``traverse_reference``'s closest hit → ``types.Hit``: t = inf and
+    tri = -1 on a miss, ``tri = tri_map[row]``, ``point = origin +
+    direction · t`` (t read as 0 on a miss), the normal 0 on a miss.  The
+    kernel writes these fields itself."""
     valid = row >= 0
     tri = torch.where(valid, cl.tri_map[torch.clamp(row, min=0).long()], -1)
     t = torch.where(valid, t, math.inf)
@@ -179,14 +227,35 @@ def intersect_clusters(cl, origin, direction, active=None, t_max=None,
                normal=torch.where(valid[:, None], normal, 0.0))
 
 
-def occluded_clusters(cl, origin, direction, t_max, active=None,
-                      t_min: float = 1e-4) -> torch.Tensor:
-    """Any-hit query: True where a triangle lies in (t_min, t_max) on an
-    active ray.  Each ray's walk ends at its first hit."""
+def intersect_clusters(cl, origin, direction, active=None, t_max=None,
+                       t_min: float = 1e-4) -> Hit:
+    """Closest hit over the cluster BVH ``cl`` → ``types.Hit``; a drop-in
+    for ``traverse.intersect_bvh`` on clustered scenes.  Ties keep the
+    lowest (t, tri16 row), so the answer is brute force over ``tri16``."""
     r = origin.shape[0]
     dev = origin.device
     act = _active(active, r, dev)
-    occ = _traverse(cl, origin, direction, act, _limits(t_max, r, dev), True,
-                    t_min)
-    return occ & act
+    if _on_kernel(origin):
+        lim = (None if t_max is None
+               else _limits(t_max, r, dev).contiguous())
+        return _traverse_cuda(cl, origin.contiguous(),
+                              direction.contiguous(), act.contiguous(), lim,
+                              False, t_min)
+    t, row, normal = traverse_reference(cl, origin, direction, act,
+                                        _limits(t_max, r, dev), False, t_min)
+    return hit_from_rows(cl, origin, direction, t, row, normal)
 
+
+def occluded_clusters(cl, origin, direction, t_max, active=None,
+                      t_min: float = 1e-4) -> torch.Tensor:
+    """Any-hit query: True where a triangle lies in (t_min, t_max) on an
+    active ray (an inactive ray is never occluded).  Each ray's walk ends
+    at its first hit."""
+    r = origin.shape[0]
+    dev = origin.device
+    act = _active(active, r, dev)
+    lim = _limits(t_max, r, dev)
+    if _on_kernel(origin):
+        return _traverse_cuda(cl, origin.contiguous(), direction.contiguous(),
+                              act.contiguous(), lim.contiguous(), True, t_min)
+    return traverse_reference(cl, origin, direction, act, lim, True, t_min)

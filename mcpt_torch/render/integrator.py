@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from mcpt_torch import rng
+from mcpt_torch.kernels import traverse_kernel
 from mcpt_torch.render import camera as camera_mod
 from mcpt_torch.render import shade as shade_mod
 from mcpt_torch.render import traverse
@@ -180,35 +181,38 @@ def trace(scene, lights, pool: RayPool, key: rng.Key, opts: RenderOptions,
     if opts.loop not in ("fori", "unroll", "while"):
         raise ValueError(f"unknown loop mode {opts.loop!r}")
 
-    for depth in range(opts.max_depth):
-        if opts.loop == "while" and not bool(pool.alive.any()):
-            break
-        _, kn_, ks_ = _bounce_keys(key, depth)
-        hit = traverse.intersect_scene(scene, pool.origin, pool.direction,
-                                       active=pool.alive, method=opts.method)
-        e_scale = (_emission_scale(hit, pool, lights, prev_scatter, prev_pdf,
-                                   opts) if use_nee else None)
-        wo = -pool.direction
-        res = shade_mod.shade(
-            scene.materials, scene.geom.mat_id, pool, hit, ks_, depth,
-            opts.max_depth, rr_enabled=opts.russian_roulette,
-            rr_start_depth=opts.rr_start_depth, emission_scale=e_scale,
-            eps=scene.eps)
-        new_pool = res.pool
-        segments = segments + pool.alive.sum()
-        if use_nee:
-            delta = _nee_contribution(scene, lights, res, hit.point, wo, kn_,
-                                      opts)
-            # NEE carries the throughput from before this bounce's weight
-            new_pool = new_pool._replace(
-                radiance=new_pool.radiance + pool.throughput * delta)
-            segments = segments + res.scatter.sum()
-        prev_scatter, prev_pdf = res.scatter, res.bsdf_pdf
-        if opts.resort:
-            new_pool, prev_scatter, prev_pdf, orig_idx = _resort_pool(
-                new_pool, prev_scatter, prev_pdf, orig_idx, bb_lo, inv_ext,
-                opts.resort_coarse_bits)
-        pool = new_pool
+    # the cluster kernel's overflow flag is read once, after the loop
+    with traverse_kernel.overflow_checked_once():
+        for depth in range(opts.max_depth):
+            if opts.loop == "while" and not bool(pool.alive.any()):
+                break
+            _, kn_, ks_ = _bounce_keys(key, depth)
+            hit = traverse.intersect_scene(
+                scene, pool.origin, pool.direction, active=pool.alive,
+                method=opts.method)
+            e_scale = (_emission_scale(hit, pool, lights, prev_scatter,
+                                       prev_pdf, opts) if use_nee else None)
+            wo = -pool.direction
+            res = shade_mod.shade(
+                scene.materials, scene.geom.mat_id, pool, hit, ks_, depth,
+                opts.max_depth, rr_enabled=opts.russian_roulette,
+                rr_start_depth=opts.rr_start_depth, emission_scale=e_scale,
+                eps=scene.eps)
+            new_pool = res.pool
+            segments = segments + pool.alive.sum()
+            if use_nee:
+                delta = _nee_contribution(scene, lights, res, hit.point, wo,
+                                          kn_, opts)
+                # NEE carries the throughput from before this bounce's weight
+                new_pool = new_pool._replace(
+                    radiance=new_pool.radiance + pool.throughput * delta)
+                segments = segments + res.scatter.sum()
+            prev_scatter, prev_pdf = res.scatter, res.bsdf_pdf
+            if opts.resort:
+                new_pool, prev_scatter, prev_pdf, orig_idx = _resort_pool(
+                    new_pool, prev_scatter, prev_pdf, orig_idx, bb_lo,
+                    inv_ext, opts.resort_coarse_bits)
+            pool = new_pool
     if opts.resort:
         # back to the original ray order (the ids are a permutation)
         order = torch.argsort(orig_idx)
@@ -274,34 +278,38 @@ def trace_compacted(scene, lights, pool: RayPool, key: rng.Key,
     prev_scatter = torch.zeros((r0,), dtype=torch.bool, device=dev)
     prev_pdf = torch.zeros((r0,), dtype=torch.float32, device=dev)
 
-    for depth in range(opts.max_depth):
-        kn_, ks_, kc_ = _bounce_keys(key, depth)
-        hit = traverse.intersect_scene(scene, pool.origin, pool.direction,
-                                       active=pool.alive, method=opts.method)
-        segments = segments + pool.alive.sum()
-        e_scale = (_emission_scale(hit, pool, lights, prev_scatter, prev_pdf,
-                                   opts) if use_nee else None)
-        wo = -pool.direction
-        res = shade_mod.shade(
-            scene.materials, scene.geom.mat_id, pool, hit, ks_, depth,
-            opts.max_depth, rr_enabled=opts.russian_roulette,
-            rr_start_depth=opts.rr_start_depth, emission_scale=e_scale,
-            eps=scene.eps)
-        new_pool = res.pool
-        delta = new_pool.radiance - pool.radiance
-        if use_nee:
-            delta = delta + pool.throughput * _nee_contribution(
-                scene, lights, res, hit.point, wo, kn_, opts)
-            segments = segments + res.scatter.sum()
-        image.index_add_(0, new_pool.pixel.long(), delta)
-        prev_scatter, prev_pdf = res.scatter, res.bsdf_pdf
-        pool = new_pool._replace(radiance=torch.zeros_like(new_pool.radiance))
-        if depth + 1 < opts.max_depth:
-            frac = schedule[min(depth, len(schedule) - 1)]
-            cap = min(pool.count, max(1024, _round_up(int(frac * r0))))
-            if cap < pool.count:
-                pool, prev_scatter, prev_pdf = _compact_pool(
-                    pool, prev_scatter, prev_pdf, kc_, cap)
+    # the cluster kernel's overflow flag is read once, after the loop
+    with traverse_kernel.overflow_checked_once():
+        for depth in range(opts.max_depth):
+            kn_, ks_, kc_ = _bounce_keys(key, depth)
+            hit = traverse.intersect_scene(
+                scene, pool.origin, pool.direction, active=pool.alive,
+                method=opts.method)
+            segments = segments + pool.alive.sum()
+            e_scale = (_emission_scale(hit, pool, lights, prev_scatter,
+                                       prev_pdf, opts) if use_nee else None)
+            wo = -pool.direction
+            res = shade_mod.shade(
+                scene.materials, scene.geom.mat_id, pool, hit, ks_, depth,
+                opts.max_depth, rr_enabled=opts.russian_roulette,
+                rr_start_depth=opts.rr_start_depth, emission_scale=e_scale,
+                eps=scene.eps)
+            new_pool = res.pool
+            delta = new_pool.radiance - pool.radiance
+            if use_nee:
+                delta = delta + pool.throughput * _nee_contribution(
+                    scene, lights, res, hit.point, wo, kn_, opts)
+                segments = segments + res.scatter.sum()
+            image.index_add_(0, new_pool.pixel.long(), delta)
+            prev_scatter, prev_pdf = res.scatter, res.bsdf_pdf
+            pool = new_pool._replace(
+                radiance=torch.zeros_like(new_pool.radiance))
+            if depth + 1 < opts.max_depth:
+                frac = schedule[min(depth, len(schedule) - 1)]
+                cap = min(pool.count, max(1024, _round_up(int(frac * r0))))
+                if cap < pool.count:
+                    pool, prev_scatter, prev_pdf = _compact_pool(
+                        pool, prev_scatter, prev_pdf, kc_, cap)
     return (image, segments) if with_stats else image
 
 

@@ -12,14 +12,23 @@ counters (``jax_threefry_partitionable``, on by default since JAX 0.5):
 - ``uniform`` takes ``bits1 ^ bits2``, keeps its top 23 bits as the
   mantissa of a float in [1, 2) and subtracts 1.
 
-uint32 arithmetic is held in int64 tensors masked to 32 bits: torch's ``>>``
-on int32 is arithmetic, so no signed 32-bit value is ever shifted.  A key
-lives on the host as two Python ints (``Key``); the bits come out on any
-device, by default the card, as ``jax.random``'s land on the accelerator.
+Three layers for ``bits`` and ``uniform``: ``threefry2x32``, the plain
+version, with uint32 arithmetic held in int64 tensors masked to 32 bits
+(torch's ``>>`` on int32 is arithmetic, so no signed 32-bit value is ever
+shifted); ``_threefry_cuda``, which launches ``mcpt_torch/csrc/threefry.cu``
+(one pass, uint32 words, only the output written); and the dispatch in
+``_draw``: CPU tensors run the plain version, CUDA tensors launch the kernel,
+any other device raises.  Nothing falls back.  A key lives on the host as
+two Python ints (``Key``), and ``key``, ``fold_in`` and ``split`` stay
+scalar hashes on the host; the draws land by default on the card, as
+``jax.random``'s land on the accelerator.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -27,6 +36,24 @@ import torch
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+
+# kernel launches made on CUDA tensors (never the plain version's calls) —
+# read by chip_smoke.py to show the main path used the kernel
+LAUNCHES = 0
+_PLAIN_ON_CUDA = False
+
+
+@contextlib.contextmanager
+def plain_version_on_cuda():
+    """Inside this block draws on CUDA run the plain version instead of the
+    kernel: how a whole wavefront render is held against its plain version
+    on the card.  Nothing else sets it."""
+    global _PLAIN_ON_CUDA
+    saved, _PLAIN_ON_CUDA = _PLAIN_ON_CUDA, True
+    try:
+        yield
+    finally:
+        _PLAIN_ON_CUDA = saved
 
 
 class Key(NamedTuple):
@@ -88,19 +115,53 @@ def split(k: Key, n: int = 2) -> list[Key]:
     return [Key(int(x), int(y)) for x, y in zip(a.tolist(), b.tolist())]
 
 
+def _threefry_cuda(k: Key, shape, device, uniform: bool) -> torch.Tensor:
+    """Launch ``mcpt_torch/csrc/threefry.cu`` on the current stream of
+    ``device``: float32 uniforms or int64 bits of ``shape``, the plain
+    version's bits.  Raises on a refused launch."""
+    global LAUNCHES
+    from mcpt_torch.kernels import _build
+
+    out = torch.empty(tuple(shape),
+                      dtype=torch.float32 if uniform else torch.int64,
+                      device=device)
+    n = out.numel()
+    if n == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = lib.mcpt_threefry(k.k1 & _M32, k.k2 & _M32, n, int(uniform),
+                               out.data_ptr(), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"threefry launch failed: CUDA error {rc} "
+                           f"({lib.mcpt_error_string(rc).decode()})")
+    LAUNCHES += 1
+    return out
+
+
+def _draw(k: Key, shape, device, uniform: bool) -> torch.Tensor:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not _PLAIN_ON_CUDA:
+        return _threefry_cuda(k, shape, dev, uniform)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"threefry draws run on cpu or cuda, not "
+                         f"{dev.type}")
+    hi, lo = _iota(math.prod(shape), dev)
+    a, b = threefry2x32(k.k1, k.k2, hi, lo)
+    b = (a ^ b).reshape(tuple(shape))
+    if not uniform:
+        return b
+    mant = (b >> 9) | 0x3F800000
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
 def bits(k: Key, shape, device="cuda") -> torch.Tensor:
     """32 random bits per element (``jax.random.bits(k, shape)``), held in
     int64."""
-    n = 1
-    for s in shape:
-        n *= s
-    hi, lo = _iota(n, device)
-    a, b = threefry2x32(k.k1, k.k2, hi, lo)
-    return (a ^ b).reshape(shape)
+    return _draw(k, shape, device, uniform=False)
 
 
 def uniform(k: Key, shape, device="cuda") -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32)`` in [0, 1)."""
-    mant = (bits(k, shape, device) >> 9) | 0x3F800000
-    return mant.to(torch.int32).view(torch.float32) - 1.0
-
+    return _draw(k, shape, device, uniform=True)

@@ -389,7 +389,8 @@ def _random_rays(device, n=20000, seed=8):
 
 def test_traverse_matches_plain_version(cuda):
     """Closest hit and any-hit of random rays, 30% inactive, with random
-    limits: equal t, row, normal and occlusion, one launch each."""
+    limits (and the closest hit without one): every field of the plain
+    version's ``Hit`` and occlusion, bit for bit, one launch each."""
     from mcpt_torch.kernels import traverse_kernel as tk
 
     loaded, _ = scenes.boxfield(60)
@@ -397,13 +398,16 @@ def test_traverse_matches_plain_version(cuda):
     cl = scene.clusters
     o, d, active, limit = _random_rays(cuda)
     before = tk.LAUNCHES
-    for any_hit in (False, True):
-        a = tk._traverse(cl, o, d, active, limit, any_hit, 1e-4)
-        b = tk.traverse_reference(cl, o, d, active, limit, any_hit, 1e-4)
-        for x, y in zip(a if not any_hit else (a,), b if not any_hit
-                        else (b,)):
-            assert torch.equal(x, y), any_hit
-    assert tk.LAUNCHES == before + 2
+    for lim in (limit, None):
+        a = tk._traverse_cuda(cl, o, d, active, lim, False, 1e-4)
+        b = tk.hit_from_rows(cl, o, d, *tk.traverse_reference(
+            cl, o, d, active, torch.full_like(limit, 3.0e38)
+            if lim is None else lim, False, 1e-4))
+        assert _same_hits(a, b), lim is None
+    occ = tk._traverse_cuda(cl, o, d, active, limit, True, 1e-4)
+    assert torch.equal(occ, tk.traverse_reference(cl, o, d, active, limit,
+                                                  True, 1e-4))
+    assert tk.LAUNCHES == before + 3
     hit = tk.intersect_clusters(cl, o, d, active=active)
     assert int((hit.tri >= 0).sum()) > 1000
     assert (hit.tri[~active] == -1).all()
@@ -428,6 +432,11 @@ def test_traverse_wrapper_refusals(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         tk._traverse_cuda(cl._replace(tri16=cl.tri16.cpu()), o, d, active,
                           limit, False)
+    with pytest.raises(ValueError, match="tri_map"):
+        tk._traverse_cuda(cl._replace(tri_map=cl.tri_map.long()), o, d,
+                          active, None, False)
+    with pytest.raises(ValueError, match="limit"):
+        tk._traverse_cuda(cl, o, d, active, None, True)
 
 
 def test_cluster_mega_wrapper_refusals(cuda):
@@ -445,8 +454,10 @@ def test_cluster_mega_wrapper_refusals(cuda):
 
 def test_wavefront_on_cuda_goes_through_the_kernel(cuda):
     """A clustered scene on CUDA resolves to the cluster kernel: two
-    launches a bounce (closest hit and NEE shadow rays), and the plain
-    version's image."""
+    launches a bounce (closest hit and NEE shadow rays), and its draws go
+    through the threefry kernel: a camera draw a sample, a shade and an
+    NEE draw a bounce.  Under both plain contexts (kernel 4's and rng's)
+    neither launches, and the image has the same bits."""
     from mcpt_torch import rng
     from mcpt_torch.kernels import traverse_kernel as tk
     from mcpt_torch.render import integrator as integ
@@ -460,16 +471,149 @@ def test_wavefront_on_cuda_goes_through_the_kernel(cuda):
     opts = integ.RenderOptions(max_depth=4, nee=True, mis=True,
                                russian_roulette=True, rr_start_depth=1,
                                resort=True)
-    before = tk.LAUNCHES
+    before, draws = tk.LAUNCHES, rng.LAUNCHES
     a, sa = integ.render_batch(scene, lights, cam, 32, 24, rng.key(2), opts,
                                spp=2, with_stats=True)
     assert tk.LAUNCHES == before + 2 * 4
-    with tk.plain_version_on_cuda():
+    assert rng.LAUNCHES == draws + 2 + 2 * 4
+    with tk.plain_version_on_cuda(), rng.plain_version_on_cuda():
         b, sb = integ.render_batch(scene, lights, cam, 32, 24, rng.key(2),
                                    opts, spp=2, with_stats=True)
     assert tk.LAUNCHES == before + 2 * 4
+    assert rng.LAUNCHES == draws + 2 + 2 * 4
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert float(sa) == float(sb)
+
+
+def _boxfield_clusters(device, w=32, h=24):
+    loaded, camcfg = scenes.boxfield(60)
+    scene, lights = build_scene(loaded, device=device)
+    cam = make_camera(dataclasses.replace(camcfg, resolution=(w, h)),
+                      device=device)
+    return scene, lights, cam
+
+
+def _same_hits(a, b):
+    """Two ``types.Hit``s with the same bits in every field."""
+    return all(torch.equal(x.view(torch.int32) if x.is_floating_point()
+                           else x, y.view(torch.int32)
+                           if y.is_floating_point() else y)
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1027, 20000])
+@pytest.mark.parametrize("dead", ["none", "scattered", "tail", "all"])
+def test_traverse_launch_on_ragged_and_dead_pools(cuda, n, dead):
+    """Kernel 4 through ``intersect_clusters`` / ``occluded_clusters``, on
+    pools that end mid-warp and mid-block, with no, scattered (30%), tail
+    (the resort's dead rays last) and all rays inactive: every field of the
+    plain version's ``Hit`` and occlusion, bit for bit, one launch each."""
+    from mcpt_torch.kernels import traverse_kernel as tk
+
+    scene, _, _ = _boxfield_clusters(cuda)
+    cl = scene.clusters
+    o, d, active, limit = _random_rays(cuda, n=n, seed=n)
+    if dead == "none":
+        active = torch.ones_like(active)
+    elif dead == "tail":
+        active = torch.arange(n, device=cuda) < n * 2 // 3
+    elif dead == "all":
+        active = torch.zeros_like(active)
+    before = tk.LAUNCHES
+    a = tk.intersect_clusters(cl, o, d, active=active)
+    occ = tk.occluded_clusters(cl, o, d, limit, active=active)
+    assert tk.LAUNCHES == before + 2
+    with tk.plain_version_on_cuda():
+        b = tk.intersect_clusters(cl, o, d, active=active)
+        occ_b = tk.occluded_clusters(cl, o, d, limit, active=active)
+    assert tk.LAUNCHES == before + 2
+    assert _same_hits(a, b)
+    assert torch.equal(occ, occ_b)
+    assert not bool(occ[~active].any()) and bool((a.tri[~active] == -1).all())
+    if dead == "all":
+        assert bool(torch.isinf(a.t).all()) and torch.equal(a.point, o)
+
+
+def _cyclic_clusters(cl, device):
+    """``cl`` with one wide node whose 8 always-hit children are itself: a
+    walk pushes past any stack cap."""
+    row = torch.zeros(64, dtype=torch.float32)
+    for k in range(8):
+        row[6 * k: 6 * k + 3] = -1e30
+        row[6 * k + 3: 6 * k + 6] = 1e30
+    row[56:64] = float(sum(k << (3 * k) for k in range(8)))
+    return cl._replace(wnodes=row[None].to(device))
+
+
+def test_traverse_stack_overflow_raises(cuda):
+    """A cyclic table overflows kernel 4's stack: ``intersect_clusters``
+    and ``occluded_clusters`` raise at once outside a deferred block;
+    ``integrator.trace`` reads the flag once, after its bounce loop, and
+    raises there; a healthy render after it runs clean."""
+    from mcpt_torch import rng
+    from mcpt_torch.kernels import traverse_kernel as tk
+    from mcpt_torch.render import camera as camera_mod
+    from mcpt_torch.render import integrator as integ
+
+    scene, lights, cam = _boxfield_clusters(cuda)
+    bad = _cyclic_clusters(scene.clusters, cuda)
+    o, d, active, limit = _random_rays(cuda, n=256)
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        tk.intersect_clusters(bad, o, d, active=active)
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        tk.occluded_clusters(bad, o, d, limit, active=active)
+    opts = integ.RenderOptions(max_depth=3, nee=True, mis=True, resort=True)
+    pool = camera_mod.generate_rays(cam, 32, 24, key=rng.key(1))
+    before = tk.LAUNCHES
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        integ.trace(scene._replace(clusters=bad), lights, pool, rng.key(2),
+                    opts)
+    assert tk.LAUNCHES == before + 2 * 3  # every bounce ran: no early read
+    assert tk._DEFERRED is None
+    out = integ.trace(scene, lights, pool, rng.key(2), opts)
+    assert bool(torch.isfinite(out.radiance).all())
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+@pytest.mark.parametrize("shape", [(0,), (1,), (1031,), (1031, 2),
+                                   (1031, 3), (1031, 6), (100003, 6)])
+def test_threefry_kernel_matches_plain_version(cuda, seed, shape):
+    """``rng.uniform`` and ``rng.bits`` through the threefry kernel against
+    the plain version on the card, bit for bit, on ragged counts (not a
+    multiple of the 4 a thread hashes), one launch each (none for an empty
+    draw)."""
+    from mcpt_torch import rng
+
+    k = rng.fold_in(rng.key(seed), 3)
+    before = rng.LAUNCHES
+    u, b = rng.uniform(k, shape, cuda), rng.bits(k, shape, cuda)
+    n = 1
+    for x in shape:
+        n *= x
+    assert rng.LAUNCHES == before + (2 if n else 0)
+    assert u.dtype == torch.float32 and b.dtype == torch.int64
+    assert tuple(u.shape) == shape and tuple(b.shape) == shape
+    with rng.plain_version_on_cuda():
+        u_ref, b_ref = rng.uniform(k, shape, cuda), rng.bits(k, shape, cuda)
+    assert rng.LAUNCHES == before + (2 if n else 0)
+    assert torch.equal(u.view(torch.int32), u_ref.view(torch.int32))
+    assert torch.equal(b, b_ref)
+    assert torch.equal(u.cpu().view(torch.int32),
+                       rng.uniform(k, shape, "cpu").view(torch.int32))
+
+
+def test_threefry_kernel_config9_largest_draw(cuda):
+    """Config 9's largest draw, the shade draw of a 1920x1080 step at 4 spp
+    (49,766,400 uniforms), against the plain version bit for bit."""
+    from mcpt_torch import rng
+
+    k = rng.key(1234)
+    shape = (1920 * 1080 * 4, 6)
+    u = rng.uniform(k, shape, cuda)
+    with rng.plain_version_on_cuda():
+        u_ref = rng.uniform(k, shape, cuda)
+    assert torch.equal(u.view(torch.int32), u_ref.view(torch.int32))
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
 
 
 # --------------------------------------------------------------------------

@@ -47,3 +47,22 @@ def test_threefry_equals_jax_random(seed, case):
         # a vmapped split is the split of each key
         got = [[tuple(x) for x in rng.split(k, 3)] for k in rng.split(tf, 4)]
         assert want.tolist() == [[list(x) for x in ks] for ks in got]
+
+
+@pytest.mark.parametrize("fn", [rng.uniform, rng.bits])
+def test_draws_refuse_other_devices(fn):
+    """The draws run on the CPU (the plain version) or CUDA (the threefry
+    kernel); any other device raises, and nothing falls back."""
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fn(rng.key(1), (8, 2), "meta")
+
+
+def test_plain_draws_never_count_launches():
+    """CPU draws run the plain version, inside the plain context or not,
+    and count no kernel launch."""
+    before = rng.LAUNCHES
+    a = rng.uniform(rng.key(3), (257, 3), "cpu")
+    with rng.plain_version_on_cuda():
+        b = rng.uniform(rng.key(3), (257, 3), "cpu")
+    assert rng.LAUNCHES == before and not rng._PLAIN_ON_CUDA
+    assert torch.equal(a, b)
