@@ -68,6 +68,21 @@ bound (integer operations at the SM's issue rate), then config 9's largest
 draw and ragged counts.  Phases 15 and 16 count its launches beside kernel
 4's, and phase 15 holds the wavefront against both plain versions.
 
+Phase 21, the dev tools: ``mcpt_torch.make_goldens`` renders the four
+goldens at 2048 spp into ``out/goldens`` (kernel 1 for cbox, veach_mis and
+quad_light, kernel 2 for diningroom) and ``mcpt_torch.compare`` holds each
+against the committed ``tests/goldens`` (same streams as ``mcpt``'s golden
+runs; gates ``GOLDEN_GATES``); then ``validate_hybrid`` and
+``crosscheck_wavefront`` with their own gates, each timed with its
+launches.  Phase 22, sharded rendering on the one card: a gloo world of
+``DIST_WORLD`` ranks on cuda:0 (this script with ``--dist-rank``) holds the
+sharded engines of kernels 1-4 against one device, stream-exact (2x2 and
+1x4 meshes; the 1x4 slices start mid-row and the last is padded); then
+config 9 at its own size and mesh runs ``render_cli`` on 8 ranks under
+``torchrun`` (this script with ``--cli-rank``, which records each rank's
+launches), held against one process rendering the same steps within the
+noise of its spp.
+
 Phases 11, 13 and 14 also print each walking kernel's ptxas report, its
 stack (entries and shared memory a block), its resident blocks an SM, its
 tables' padding share, and its bound twice: from the live rows the walks
@@ -164,11 +179,10 @@ def smi() -> str:
 
 
 def rel_rmse(a, b) -> float:
-    """``tools/compare.compare``'s relative RMSE: rmse(a - b) / rms(b)."""
-    import numpy as np
+    """``mcpt_torch.compare``'s relative RMSE: rmse(a - b) / rms(b)."""
+    from mcpt_torch.compare import compare
 
-    rmse = float(np.sqrt(((a - b) ** 2).mean()))
-    return rmse / max(float(np.sqrt((b ** 2).mean())), 1e-20)
+    return compare(a, b)["rel_rmse"]
 
 
 def setup(name, width, height, device, **builder_kw):
@@ -433,6 +447,8 @@ def run() -> dict:
     report.update(run_slice3(card))
     report.update(run_slice4(card))
     report.update(run_threefry(card))
+    report.update(run_tools(card))
+    report.update(run_sharded(card))
     return report
 
 
@@ -2121,6 +2137,451 @@ def kernel_ab(trees, only=()) -> dict:
     return result
 
 
+# phase 21: rel-RMSE of the port's 2048-spp goldens (the streams of mcpt's
+# golden runs) against the committed ones.  cbox and diningroom take
+# validate_hybrid's gates; veach_mis and quad_light the same noise model
+# (1.4 × the combined noise of a 1024- and a 2048-spp render), from phase
+# 4's 256-spp readings against the goldens, 0.0921 and 0.0090 (PERF.md §6):
+# 1.4·sqrt(3/8)/sqrt(9/8) = 0.808 × the reading
+GOLDEN_GATES = {"cornell_box": 0.025, "veach_mis": 0.075,
+                "quad_light_plane": 0.0075, "diningroom": 0.045}
+DIST_WORLD = 4  # phase 22's gloo world on the one card (a 2x2 mesh)
+CONFIG9_RANKS = 8  # config 9's own mesh, {"samples": 8}
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch count (kernels 1-5 and threefry)."""
+    from mcpt_torch import rng
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+    from mcpt_torch.kernels import fma_peak
+    from mcpt_torch.kernels import megakernel as mk
+    from mcpt_torch.kernels import traverse_kernel as tk
+
+    return {"kernel 1": mk.LAUNCHES, "kernel 2": cmk.LAUNCHES,
+            "kernel 3": cmk.CLUSTER_MEGA_LAUNCHES, "kernel 4": tk.LAUNCHES,
+            "kernel 5": fma_peak.LAUNCHES, "threefry": rng.LAUNCHES}
+
+
+def zero_counts() -> None:
+    from mcpt_torch import rng
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+    from mcpt_torch.kernels import fma_peak
+    from mcpt_torch.kernels import megakernel as mk
+    from mcpt_torch.kernels import traverse_kernel as tk
+
+    mk.LAUNCHES = cmk.LAUNCHES = cmk.CLUSTER_MEGA_LAUNCHES = 0
+    tk.LAUNCHES = fma_peak.LAUNCHES = rng.LAUNCHES = 0
+
+
+def expect_counts(label, got: dict, want: dict, free=()) -> None:
+    """Raise unless the launch counts ``got`` equal ``want`` (kernels not
+    named must be 0; those in ``free`` may take any count)."""
+    full = {k: want.get(k, got[k] if k in free else 0) for k in got}
+    print(f"  {label}: launches {got}")
+    if got != full:
+        raise AssertionError(f"{label}: launches {got}, expected {full}")
+
+
+def run_tools(card) -> dict:
+    """Phase 21: the dev tools on the card.  ``make_goldens`` renders the
+    four goldens at 2048 spp (cbox, veach_mis, quad_light through kernel 1,
+    diningroom through kernel 2) and ``compare`` holds each against the
+    committed ``tests/goldens``; then ``validate_hybrid`` and
+    ``crosscheck_wavefront`` with their own gates, each timed, with the
+    launches of its run."""
+    from mcpt_torch import compare, crosscheck_wavefront, make_goldens
+    from mcpt_torch import validate_hybrid
+
+    t_phase = time.perf_counter()
+    phase(21, "the dev tools on the card: make_goldens + compare against "
+              "tests/goldens, validate_hybrid, crosscheck_wavefront")
+    saved = kernel_counts()
+    out_dir = os.path.join(ROOT, "out", "goldens")
+    tools = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    if make_goldens.main(["--out", out_dir]) != 0:
+        raise AssertionError("make_goldens failed")
+    tools["make_goldens_s"] = time.perf_counter() - t0
+    steps = make_goldens.GOLDENS[0][3] // make_goldens.STEP
+    expect_counts("make_goldens", kernel_counts(),
+                  {"kernel 1": 3 * steps, "kernel 2": steps * 8})
+    goldens = {}
+    for name, w, h, *_ in make_goldens.GOLDENS:
+        a = compare.load_image(os.path.join(out_dir, f"{name}.exr"))
+        b = compare.load_image(os.path.join(make_goldens.GOLDEN_DIR,
+                                            f"{name}.exr"))
+        stats = compare.compare(a.astype(float), b.astype(float))
+        goldens[name] = stats["rel_rmse"]
+        print(f"  golden {name} {w}x{h} 2048 spp vs tests/goldens: rel-RMSE "
+              f"{stats['rel_rmse']:.6f} (gate {GOLDEN_GATES[name]}), mean "
+              f"rel err {stats['mean_rel_err']:.6f} | {card}")
+        if not stats["rel_rmse"] < GOLDEN_GATES[name]:
+            raise AssertionError(f"golden {name}: rel-RMSE "
+                                 f"{stats['rel_rmse']} over its gate")
+    print(f"  make_goldens: {tools['make_goldens_s']:.1f} s for the four "
+          f"goldens | {card}")
+    zero_counts()
+    t0 = time.perf_counter()
+    failed = validate_hybrid.main([])
+    tools["validate_hybrid_s"] = time.perf_counter() - t0
+    batches = [spp // validate_hybrid.BATCH * depth
+               for _, _, _, spp, depth, _ in validate_hybrid.GATES]
+    # the wavefront pilot draws threefry numbers
+    expect_counts("validate_hybrid", kernel_counts(),
+                  {"kernel 2": sum(batches)}, free=("threefry",))
+    print(f"  validate_hybrid: {failed} gates failed, "
+          f"{tools['validate_hybrid_s']:.1f} s | {card}")
+    if failed:
+        raise AssertionError(f"validate_hybrid: {failed} gates failed")
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = crosscheck_wavefront.main([])
+    tools["crosscheck_wavefront_s"] = time.perf_counter() - t0
+    # the BVH walk: no kernel shares its walk with the hybrid's
+    counts = kernel_counts()
+    expect_counts("crosscheck_wavefront", counts, {}, free=("threefry",))
+    if not counts["threefry"]:
+        raise AssertionError("crosscheck_wavefront drew no threefry numbers")
+    print(f"  crosscheck_wavefront: rc {rc}, "
+          f"{tools['crosscheck_wavefront_s']:.1f} s | {card}")
+    if rc != 0:
+        raise AssertionError("crosscheck_wavefront failed its gate")
+    restore_counts(saved)  # these are not main-path launches
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return {"goldens": goldens, "tools": tools}
+
+
+def restore_counts(counts: dict) -> None:
+    from mcpt_torch import rng
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+    from mcpt_torch.kernels import fma_peak
+    from mcpt_torch.kernels import megakernel as mk
+    from mcpt_torch.kernels import traverse_kernel as tk
+
+    mk.LAUNCHES, cmk.LAUNCHES = counts["kernel 1"], counts["kernel 2"]
+    cmk.CLUSTER_MEGA_LAUNCHES, tk.LAUNCHES = (counts["kernel 3"],
+                                              counts["kernel 4"])
+    fma_peak.LAUNCHES, rng.LAUNCHES = counts["kernel 5"], counts["threefry"]
+
+
+def time_collectives() -> dict:
+    """Wrap ``dist.Mesh.combine`` (the gloo collectives of a sharded call):
+    a barrier over the mesh first, so the time excludes the wait for the
+    other ranks' renders → the dict its seconds and calls add up in."""
+    import torch
+    import torch.distributed as tdist
+
+    from mcpt_torch import dist
+
+    spent = {"s": 0.0, "calls": 0}
+    combine = dist.Mesh.combine
+
+    def timed(self, rows, segs):
+        torch.cuda.synchronize()
+        tdist.barrier(group=self.group)
+        t0 = time.perf_counter()
+        out = combine(self, rows, segs)
+        torch.cuda.synchronize()
+        spent["s"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        return out
+
+    dist.Mesh.combine = timed
+    return spent
+
+
+def dist_cases(dev):
+    """Phase 22's sharded cases: (label, run(mesh) → (radiance, segments),
+    one-device run → (radiance, segments), mesh names).  1x4's 4 slices of
+    a 509x311 or 61x37 view start mid-row and the last is padded."""
+    import torch
+
+    from mcpt_torch import dist, rng
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+    from mcpt_torch.kernels import megakernel as mk
+    from mcpt_torch.render import integrator as integ
+
+    cases = []
+    mega0, cam0, w0, h0, kw0 = main_path_step(0, dev)
+    kw0 = dict(kw0)
+    spp0 = kw0.pop("spp")
+    cases.append(("kernel 1 · config 0 512x512", ("2x2",),
+                  lambda m: dist.render_mega_sharded(
+                      mega0, cam0, w0, h0, spp0, m, **kw0),
+                  lambda: mk.render_mega(mega0, cam0, w0, h0, spp=spp0,
+                                         **kw0)))
+    mega1, cam1 = setup("cornell_box", 509, 311, dev)
+    kw1 = dict(seed=4, max_depth=16, nee=True, mis=True, rr=True)
+    cases.append(("kernel 1 · cbox 509x311", ("1x4", "2x2"),
+                  lambda m: dist.render_mega_sharded(
+                      mega1, cam1, 509, 311, 4, m, **kw1),
+                  lambda: mk.render_mega(mega1, cam1, 509, 311, spp=4,
+                                         **kw1)))
+    kw = dict(seed=6, max_depth=8, nee=True, mis=True, rr=True)
+    for name, w, h, scene_kw in (("boxfield", 61, 37, {"n_boxes": 60}),
+                                 ("diningroom", 64, 36, {})):
+        _, _, cms, cam = hybrid_setup(name, w, h, dev, **scene_kw)
+        for kernel, sharded, one in (
+                ("kernel 3", dist.render_cluster_sharded,
+                 lambda c, cm, w_, h_: cmk.render_cluster_mega(
+                     c, cm, w_, h_, 4, schedule="batch", **kw)),
+                ("kernel 2", dist.render_hybrid_sharded,
+                 lambda c, cm, w_, h_: cmk.render_hybrid(c, cm, w_, h_, 4,
+                                                         **kw))):
+            cases.append((f"{kernel} · {name} {w}x{h}", ("1x4", "2x2"),
+                          lambda m, c=cms, cm=cam, w_=w, h_=h, f=sharded:
+                          f(c, cm, w_, h_, 4, m, **kw),
+                          lambda c=cms, cm=cam, w_=w, h_=h, f=one:
+                          f(c, cm, w_, h_)))
+    # kernel 4: the wavefront's cluster walk, the furnace identity
+    from mcpt_torch import scenes
+    from mcpt_torch.render.camera import make_camera
+    from mcpt_torch.scene import build_scene
+
+    loaded, camcfg = scenes.furnace_sphere(albedo=0.5, emission=1.0,
+                                           subdiv=2)
+    fscene, flights = build_scene(loaded, device=dev)
+    fcam = make_camera(dataclasses.replace(camcfg, resolution=(21, 21)),
+                       device=dev)
+    opts = integ.RenderOptions(max_depth=8)
+    cases.append(("kernel 4 · furnace 21x21 (wavefront)", ("1x4", "2x2"),
+                  lambda m: dist.render_batch_sharded(
+                      fscene, flights, fcam, 21, 21, rng.key(0), opts, 4, m,
+                      with_stats=True),
+                  None))
+    return cases
+
+
+def dist_rank(rank: int, world: int, init: str, out: str) -> int:
+    """One rank of phase 22's gloo world, all ranks on cuda:0: each case on
+    each of its meshes (sharded, then the same call on one device), its
+    launches, its wall time and the collectives' → ``<out>.<rank>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    tdist.init_process_group("gloo", init_method=init, rank=rank,
+                             world_size=world)
+    from mcpt_torch import dist
+
+    meshes = {"2x2": dist.make_mesh(samples=2, pixels=2),
+              "1x4": dist.make_mesh(samples=1, pixels=4)}
+    spent = time_collectives()
+    results = {}
+    for label, mesh_names, sharded, one in dist_cases(dev):
+        for mname in mesh_names:
+            mesh = meshes[mname]
+            sharded(mesh)  # warm-up: the first call builds nothing more
+            torch.cuda.synchronize()
+            zero_counts()
+            spent.update(s=0.0, calls=0)
+            t0 = time.perf_counter()
+            rad, segs = sharded(mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            row = dict(launches=kernel_counts(), wall_s=wall,
+                       collectives_s=spent["s"], segs=float(segs))
+            a = rad.cpu().numpy()
+            if one is None:  # the furnace identity: sphere 0.5, sky 1.0
+                img = a.reshape(21, 21, 3) / 4.0
+                row["max_abs_err"] = float(max(
+                    np.abs(img[10, 10] - 0.5).max(),
+                    np.abs(img[0, 0] - 1.0).max()))
+                row["ok"] = row["max_abs_err"] <= 1e-5
+            else:
+                t0 = time.perf_counter()
+                b, sb = one()
+                torch.cuda.synchronize()
+                row["one_device_s"] = time.perf_counter() - t0
+                b = b.cpu().numpy()
+                err = np.abs(a - b)
+                row["max_abs_err"] = float(err.max())
+                row["segs_one"] = float(sb)
+                row["ok"] = bool((err <= 1e-5 * np.abs(b) + 1e-6).all()
+                                 and float(segs) == float(sb)
+                                 and a.shape == b.shape
+                                 and np.isfinite(a).all())
+            results[f"{label} · mesh {mname}"] = row
+    with open(f"{out}.{rank}.json", "w", encoding="utf-8") as f:
+        json.dump(results, f)
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def cli_rank(out: str, argv) -> int:
+    """One rank of ``render_cli`` under ``torchrun``: ``render_cli.main
+    (argv)``, then this rank's launches and collectives' time →
+    ``<out>.<rank>.json``."""
+    from mcpt_torch import render_cli
+
+    spent = time_collectives()
+    zero_counts()
+    rc = render_cli.main(argv)
+    with open(f"{out}.{os.environ['RANK']}.json", "w",
+              encoding="utf-8") as f:
+        json.dump(dict(launches=kernel_counts(), collectives_s=spent["s"],
+                       collectives=spent["calls"]), f)
+    return rc
+
+
+def run_cli(argv, label) -> tuple:
+    """``render_cli.main(argv)`` in this process → (its output, wall s)."""
+    from mcpt_torch import render_cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = render_cli.main(argv)
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    print(text.strip())
+    if rc != 0:
+        raise AssertionError(f"{label}: render_cli returned {rc}")
+    return text, wall
+
+
+def segments_of(text) -> float:
+    return float(re.search(r"^segments: (\d+) in ", text, re.M).group(1))
+
+
+def run_sharded(card) -> dict:
+    """Phase 22: sharded rendering on the one card.  A gloo world of
+    ``DIST_WORLD`` ranks on cuda:0 holds kernels 1-4's sharded engines
+    against one device (2x2 and 1x4 meshes; 1x4 splits mid-row with a
+    padded tail); then config 9 at its own size and mesh (8 ranks under
+    ``torchrun``, eight on the one card) against one process rendering the
+    same steps."""
+    import numpy as np
+
+    from mcpt_torch.config import write_config_variant
+
+    t_phase = time.perf_counter()
+    phase(22, f"sharded rendering on the one card: a {DIST_WORLD}-rank gloo "
+              f"world (kernels 1-4), then config 9 with {CONFIG9_RANKS} "
+              "ranks under torchrun")
+    saved = kernel_counts()
+    work = os.path.join(ROOT, "out", "dist")
+    os.makedirs(work, exist_ok=True)
+    for f in os.listdir(work):
+        os.remove(os.path.join(work, f))
+    init = f"file://{os.path.join(work, 'rendezvous')}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dist-rank", str(r), str(DIST_WORLD), init,
+                               os.path.join(work, "rank")])
+             for r in range(DIST_WORLD)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    world_s = time.perf_counter() - t0
+    if any(rcs):
+        raise AssertionError(f"phase 22 ranks exited {rcs}")
+    rows = {}
+    for r in range(DIST_WORLD):
+        with open(os.path.join(work, f"rank.{r}.json"), encoding="utf-8") as f:
+            for key, row in json.load(f).items():
+                rows.setdefault(key, []).append(row)
+    sharded = {}
+    for key, per_rank in rows.items():
+        kernel = key.split(" · ")[0]  # the label names its kernel
+        launches = [row["launches"][kernel] for row in per_rank]
+        r0 = per_rank[0]
+        share = r0["collectives_s"] / r0["wall_s"]
+        print(f"  {key}: stream-exact on every rank "
+              f"{all(row['ok'] for row in per_rank)}, max |a-b| "
+              f"{max(row['max_abs_err'] for row in per_rank):.3e}, segments "
+              f"{r0['segs']:.0f}; {kernel} launches per rank {launches}; "
+              f"rank 0 wall {r0['wall_s'] * 1e3:.2f} ms (one device "
+              f"{r0.get('one_device_s', float('nan')) * 1e3:.2f}), gloo "
+              f"collectives {r0['collectives_s'] * 1e3:.2f} ms "
+              f"({share:.1%}) | {card}")
+        if not all(row["ok"] for row in per_rank):
+            raise AssertionError(f"{key}: sharded disagrees with one device")
+        if not all(launches):
+            raise AssertionError(f"{key}: a rank launched no {kernel}")
+        sharded[key] = dict(wall_ms=r0["wall_s"] * 1e3, gloo_share=share)
+    print(f"  gloo world of {DIST_WORLD}: {world_s:.1f} s including start-up "
+          f"and scene builds | {card}")
+
+    # config 9: 8 ranks of render_cli under torchrun, all on cuda:0
+    c9 = os.path.join(work, "c9.json")
+    write_config_variant(os.path.join(ROOT, "config.json"), 9, c9)
+    spp = 16
+    common = ["--config", c9, "--spp", str(spp), "--checkpoint-every",
+              str(spp)]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(CONFIG9_RANKS), os.path.abspath(__file__),
+           "--cli-rank", os.path.join(work, "cli"), *common, "--out",
+           os.path.join(work, "sharded")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          check=False)
+    torchrun_s = time.perf_counter() - t0
+    print(proc.stdout.strip())
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr)
+        raise AssertionError(f"config 9 under torchrun exited "
+                             f"{proc.returncode}")
+    if "backend gloo" not in proc.stdout:
+        raise AssertionError("config 9: the ranks did not share the card "
+                             "over gloo")
+    per_rank = []
+    for r in range(CONFIG9_RANKS):
+        with open(os.path.join(work, f"cli.{r}.json"), encoding="utf-8") as f:
+            per_rank.append(json.load(f))
+    k2 = [row["launches"]["kernel 2"] for row in per_rank]
+    print(f"  config 9, {CONFIG9_RANKS} ranks: kernel 2 launches per rank "
+          f"{k2}; gloo collectives, rank 0: "
+          f"{per_rank[0]['collectives_s']:.3f} s over "
+          f"{per_rank[0]['collectives']} steps; torchrun wall "
+          f"{torchrun_s:.1f} s | {card}")
+    if not all(k2):
+        raise AssertionError("config 9: a rank launched no kernel 2")
+    # one process, the same steps (the mesh rounds a step to 8 spp), and
+    # a second one at another seed: the noise of 16 spp
+    one = {}
+    for tag, seed in (("one", None), ("seed", 1)):
+        cfg_path = os.path.join(work, f"c9_{tag}.json")
+        over = dict(spp_per_step=CONFIG9_RANKS)
+        if seed is not None:
+            over["seed"] = seed
+        write_config_variant(os.path.join(ROOT, "config.json"), 9, cfg_path,
+                             **over)
+        text, wall = run_cli(["--config", cfg_path, "--spp", str(spp),
+                              "--checkpoint-every", str(spp), "--out",
+                              os.path.join(work, tag)], f"config 9 {tag}")
+        one[tag] = (text, wall)
+
+    def image(tag):
+        z = np.load(os.path.join(work, tag, "diningroom.ckpt.npz"))
+        return (z["sum"] / np.maximum(z["count"], 1)[:, None]).astype(
+            np.float64)
+
+    err = rel_rmse(image("sharded"), image("one"))
+    noise = rel_rmse(image("seed"), image("one"))
+    seg_sh, seg_one = segments_of(proc.stdout), segments_of(one["one"][0])
+    seg_rel = abs(seg_sh / seg_one - 1.0)
+    print(f"  config 9 1920x1080 {spp} spp: sharded vs one process rel-RMSE "
+          f"{err:.5f}, two seeds' (the noise of {spp} spp) {noise:.5f}; "
+          f"segments a spp {seg_sh / spp:.0f} vs {seg_one / spp:.0f} "
+          f"(ratio-1 {seg_rel:.2e}); one process wall {one['one'][1]:.1f} s"
+          f" | {card}")
+    if not (err < noise and seg_rel < 0.01):
+        raise AssertionError("config 9: the sharded render is off the "
+                             "one-process render")
+    restore_counts(saved)
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return {"sharded": sharded, "config9": dict(
+        rel_rmse=err, noise=noise, seg_rel=seg_rel, torchrun_s=torchrun_s,
+        one_process_s=one["one"][1])}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2150,7 +2611,12 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # one turn of --kernel-ab
     ap.add_argument("--engine-ab-turn", metavar="CHECKOUT",
                     help=argparse.SUPPRESS)  # one turn of --engine-ab
-    args = ap.parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    # phase 22's processes: --dist-rank RANK WORLD INIT OUT (a rank of the
+    # gloo world), --cli-rank OUT CLI-ARGS... (a rank under torchrun)
+    rank_mode = argv[0] if argv[:1] in (["--dist-rank"],
+                                        ["--cli-rank"]) else None
+    args = None if rank_mode else ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2165,6 +2631,13 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no mcpt_torch/ beside {__file__}; run it from "
               "the root of a checkout", file=sys.stderr)
         return 1
+    if rank_mode == "--dist-rank":
+        sys.path.insert(0, ROOT)
+        rank, world, init, out = argv[1:5]
+        return dist_rank(int(rank), int(world), init, out)
+    if rank_mode == "--cli-rank":
+        sys.path.insert(0, ROOT)
+        return cli_rank(argv[1], argv[2:])
     turn = args.kernel_ab_turn or args.engine_ab_turn
     if turn:
         # this turn's package is the one of the checkout it times

@@ -448,25 +448,29 @@ def render_cluster_mega_reference(cms: ClusterMegaScene, cam: T.Camera,
                                   rr_start: int = 3, nee: bool = False,
                                   mis: bool = False, clamp: float = 0.0,
                                   t_min: float = 1e-4,
-                                  schedule: str = "auto"):
+                                  schedule: str = "auto", pix=None,
+                                  sample_base: int = 0):
     """The plain version of the cluster megakernel → ((W·H, 3) radiance sum
     in pixel order, float64 segment count): the dense megakernel's lane loop
     (``megakernel.render_lanes_reference``) with the cluster walk's
     intersectors and the pixels in tile order.  Its RNG counters are the
     dense ones, so it computes the dense megakernel's and the hybrid's
-    streams."""
+    streams.  With ``pix`` (pixel ids) it renders those pixels only and
+    returns their rows in ``pix``'s order (``render_cluster_mega``)."""
     regen = mk._resolve_schedule(schedule, spp)
     perm, inv, _ = tile_pixels(width, height, cms.wnodes.device)
+    sub = perm if pix is None else pix.to(perm.device, torch.int64)
     lanes = mk.render_lanes_reference(
         cms, cam, width, height, spp, seed, max_depth, rr, rr_start, nee,
-        mis, clamp, t_min, perm, 0, regen, *_walk_pair(cms))
-    radiance, segs = mk._reduce(lanes, regen, spp, width * height)
-    return radiance[inv].contiguous(), segs
+        mis, clamp, t_min, sub, sample_base, regen, *_walk_pair(cms))
+    radiance, segs = mk._reduce(lanes, regen, spp, sub.numel())
+    return (radiance[inv] if pix is None else radiance).contiguous(), segs
 
 
 def _render_cluster_mega_cuda(cms: ClusterMegaScene, cam: T.Camera, width,
                               height, spp, seed, max_depth, rr, rr_start, nee,
-                              mis, clamp, t_min, schedule):
+                              mis, clamp, t_min, schedule, pix,
+                              sample_base):
     """Launch ``mcpt_torch/csrc/cluster_mega.cu`` on the current stream.
     Raises on a refused launch and on the stack-overflow flag (read back,
     so the call synchronises)."""
@@ -485,10 +489,14 @@ def _render_cluster_mega_cuda(cms: ClusterMegaScene, cam: T.Camera, width,
     mk._check_cuda("camera", sf)
     if sf.device != dev:
         raise ValueError(f"camera on {sf.device}, tables on {dev}")
-    n_pixels = width * height
-    _, inv, pix = tile_pixels(width, height, dev)
+    _, inv, pix32 = tile_pixels(width, height, dev)
+    if pix is not None:
+        if pix.device != dev or pix.dim() != 1:
+            raise ValueError(f"pix must be a 1-d tensor on {dev}")
+        pix32 = pix.to(torch.int32).contiguous()
+    n_pixels = pix32.numel()
     si = mk._si(0, cms.n_mats, cms.n_lights, width, height, spp, seed,
-                max_depth, rr, rr_start, n_pixels, 0, 0)
+                max_depth, rr, rr_start, n_pixels, 0, sample_base)
     n_lanes = n_pixels if regen else n_pixels * spp
     out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
     # [0] the stack-overflow flag, [1] the next lane to hand out
@@ -502,7 +510,7 @@ def _render_cluster_mega_cuda(cms: ClusterMegaScene, cam: T.Camera, width,
             cms.leaf_size, cap, cms.matt.data_ptr(), cms.lit.data_ptr(),
             cms.matt.shape[0], cms.lit.shape[0],
             int(nee and cms.n_lights > 0), int(mis), int(regen),
-            pix.data_ptr(), n_lanes, out[0].data_ptr(), out[1].data_ptr(),
+            pix32.data_ptr(), n_lanes, out[0].data_ptr(), out[1].data_ptr(),
             out[2].data_ptr(), out[3].data_ptr(), err.data_ptr(),
             ctypes.c_void_p(stream))
     if rc != 0:
@@ -514,7 +522,7 @@ def _render_cluster_mega_cuda(cms: ClusterMegaScene, cam: T.Camera, width,
                            f"(> {cap} entries); collapse_wide should have "
                            "rejected this tree")
     radiance, segs = mk._reduce(out, regen, spp, n_pixels)
-    return radiance[inv].contiguous(), segs
+    return (radiance[inv] if pix is None else radiance).contiguous(), segs
 
 
 def render_cluster_mega(cms: ClusterMegaScene, cam: T.Camera, width: int,
@@ -522,7 +530,8 @@ def render_cluster_mega(cms: ClusterMegaScene, cam: T.Camera, width: int,
                         rr: bool = False, rr_start: int = 3,
                         nee: bool = False, mis: bool = False,
                         clamp: float = 0.0, t_min: float = 1e-4,
-                        schedule: str = "auto"):
+                        schedule: str = "auto", pix: torch.Tensor | None = None,
+                        sample_base: int = 0):
     """Render ``spp`` samples with whole paths per lane through the cluster
     walk → ((W·H, 3) radiance sum in pixel order, float64 segment count),
     with ``mcpt.pallas.cluster_megakernel.render_cluster_mega``'s arguments
@@ -532,10 +541,16 @@ def render_cluster_mega(cms: ClusterMegaScene, cam: T.Camera, width: int,
     their pixels in tile order (``camera.tile_order``, ``BLKT``), so a
     warp's rays start close together.
 
+    The sharding hooks of ``mcpt``'s ``_render_cluster_jit``: ``pix`` (1-d
+    pixel ids on the tables' device, e.g. a slice of the tile order)
+    renders those pixels only and returns (len(pix), 3) rows in ``pix``'s
+    order; ``sample_base`` offsets the sample index of every RNG counter,
+    (sample_base + s)·W·H + pixel.
+
     The device of the tables decides: CPU tensors run the plain version,
     CUDA tensors launch kernel 3 (or raise)."""
     args = (cms, cam, width, height, spp, seed, max_depth, rr, rr_start, nee,
-            mis, clamp, t_min, schedule)
+            mis, clamp, t_min, schedule, pix, sample_base)
     kind = cms.wnodes.device.type
     if kind == "cpu":
         return render_cluster_mega_reference(*args)
@@ -551,19 +566,24 @@ def render_cluster_mega(cms: ClusterMegaScene, cam: T.Camera, width: int,
 
 
 def camera_pool(cms: ClusterMegaScene, cam: T.Camera, width: int,
-                height: int, spp: int, seed, n_pool: int):
+                height: int, spp: int, seed, n_pool: int, perm=None,
+                sample_base: int = 0):
     """The step's flat pool → ((16, n_pool) state, (n_pool,) int32 rid).
 
-    Sample-major lanes over the tile-ordered pixels (``_xla_camera_rays``:
-    the dense megakernel's ``cam_ray`` with the same (sample, pixel) RNG
-    streams, ``rsqrt`` written as ``1/sqrt``).  Pad lanes are dead, and
-    their ids start at ``spp·W·H`` so the final id sort puts them last."""
+    Sample-major lanes over the pixels ``perm`` (default: every pixel in
+    tile order; ``_xla_camera_rays``: the dense megakernel's ``cam_ray``
+    with the same (sample, pixel) RNG streams, ``rsqrt`` written as
+    ``1/sqrt``).  Lane (s, p) has id (sample_base + s)·W·H + p.  Pad lanes
+    are dead, and their ids start at (sample_base + spp)·W·H so the final
+    id sort puts them last."""
     dev = cms.wnodes.device
-    perm, _, _ = tile_pixels(width, height, dev)
+    if perm is None:
+        perm, _, _ = tile_pixels(width, height, dev)
     n_px, total = perm.numel(), width * height
     n_rays = n_px * spp
     pix = perm.repeat(spp)
-    smp = torch.arange(spp, device=dev).repeat_interleave(n_px)
+    smp = torch.arange(sample_base, sample_base + spp,
+                       device=dev).repeat_interleave(n_px)
     idx = (smp * total + pix) & _M32
     sf = [float(x) for x in mk._sf(cms, cam, 0.0, 0.0).cpu().tolist()]
     ctx = mk._Ctx(mega=cms, cdf=None, seed=int(seed) & _M32, sf=sf,
@@ -579,7 +599,8 @@ def camera_pool(cms: ClusterMegaScene, cam: T.Camera, width: int,
     state[3, n_rays:] = 1.0  # pad direction (1, 0, 0), as mcpt pads
     state[6:9, :n_rays] = 1.0  # throughput
     state[ALIVE, :n_rays] = 1.0
-    pad = spp * total + torch.arange(n_pool - n_rays, device=dev)
+    pad = (sample_base + spp) * total + torch.arange(n_pool - n_rays,
+                                                      device=dev)
     rid = torch.cat([idx, pad]).to(torch.int32)
     return state, rid
 
@@ -691,9 +712,11 @@ class _NoTimer:
 def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
                 rr_start=3, nee=False, mis=False, clamp=0.0, t_min=1e-4,
                 compact=None, key_mode="auto", timer=None, live=None,
-                bounce=None):
+                bounce=None, perm=None, sample_base=0):
     """The pipeline of ``_render_hybrid_jit`` as a loop over depths →
-    ((W·H, 3) radiance sum in pixel order, float64 0-d segment count).
+    ((W·H, 3) radiance sum in pixel order, float64 0-d segment count); with
+    ``perm`` (pixel ids) the (len(perm), 3) sums of those pixels in
+    ascending pixel id order, as ``mcpt``'s final reduce leaves them.
 
     ``timer`` (a ``StageTimer``) times each stage with a device sync;
     ``live`` (a list) receives the live share of the pool after each bounce
@@ -703,12 +726,12 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
     key_mode = resolve_key_mode(key_mode, compact)
     timer = timer if timer is not None else _NoTimer
     dev = cms.wnodes.device
-    n_px = width * height
+    n_px = width * height if perm is None else perm.numel()
     n_rays = n_px * spp
     rows0 = -(-n_rays // BLKT) * SUBT
     with timer.stage("raygen"):
         state, rid = camera_pool(cms, cam, width, height, spp, seed,
-                                 rows0 * 128)
+                                 rows0 * 128, perm, sample_base)
         timer.sync(state)
 
     rows_at = _compaction_schedule(rows0, max_depth, compact)
@@ -749,7 +772,8 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
             rid = rid[order]
             timer.sync(state)
 
-    # restore (sample, pixel) order by RNG id, then sum over samples
+    # restore (sample, pixel) order by RNG id (pixels ascending within a
+    # sample), then sum over samples
     with timer.stage("final-reduce"):
         ids = torch.cat([t[0] for t in tails] + [rid])
         rad = torch.cat([t[1] for t in tails] + [state[9:12]], dim=1)
@@ -763,13 +787,20 @@ def render_hybrid(cms: ClusterMegaScene, cam: T.Camera, width: int,
                   height: int, spp: int, seed, max_depth: int = 8,
                   rr: bool = False, rr_start: int = 3, nee: bool = False,
                   mis: bool = False, clamp: float = 0.0, t_min: float = 1e-4,
-                  compact: tuple | None = None, key_mode: str = "auto"):
+                  compact: tuple | None = None, key_mode: str = "auto",
+                  perm: torch.Tensor | None = None, sample_base: int = 0):
     """Hybrid fused-bounce render of ``spp`` samples → ((W·H, 3) radiance
     sum, float64 0-d segment count), with ``mcpt.pallas.cluster_megakernel
     .render_hybrid``'s arguments, less the TPU-only ``interpret`` and
     ``subt`` and the tuning knobs no caller of ``mcpt``'s sets
     (``coarse_bits`` is ``COARSE_BITS``; every bounce but the last re-sorts,
     ``resort_every=1``).
+
+    The sharding hooks of ``mcpt``'s ``_render_hybrid_jit``: ``perm`` (1-d
+    pixel ids on the tables' device, e.g. a slice of the tile order)
+    renders those pixels only and returns their (len(perm), 3) sums in
+    ascending pixel id order; ``sample_base`` offsets every lane's sample
+    index, so lane (s, p) draws the stream of id (sample_base + s)·W·H + p.
 
     ``compact``: per-depth live-share caps (entry d caps the pool entering
     bounce d+1); the pool shrinks by a prefix slice after the sort, with
@@ -778,7 +809,8 @@ def render_hybrid(cms: ClusterMegaScene, cam: T.Camera, width: int,
     from ``compact`` (``resolve_key_mode``).  The tables' device decides
     where it runs; the bounces go through ``fused_bounce``."""
     return _run_hybrid(cms, cam, width, height, spp, seed, max_depth, rr,
-                       rr_start, nee, mis, clamp, t_min, compact, key_mode)
+                       rr_start, nee, mis, clamp, t_min, compact, key_mode,
+                       perm=perm, sample_base=sample_base)
 
 
 def render_hybrid_reference(cms: ClusterMegaScene, cam: T.Camera,

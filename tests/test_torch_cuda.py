@@ -124,6 +124,32 @@ def test_kernel_on_a_pixel_range(cuda, schedule):
     torch.testing.assert_close(part, whole[37:138], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("schedule", ["regen", "batch"])
+def test_kernel_on_a_mid_tile_slice_and_the_tail(cuda, schedule):
+    """The sharded engine's slices on a ragged 23x17 view: one that starts
+    mid-row and mid 8x4 tile (pixel 118 = row 5, column 3) and the tail
+    slice that ends at the last pixel, each with a sample base; the plain
+    version's bits, which are the whole view's rows at those samples.  A
+    slice past the last pixel is refused (the sharded engine gives the last
+    shard its true count)."""
+    mega, cam = _setup("cornell_box", 23, 17, cuda)
+    kw = dict(seed=5, max_depth=6, rr=True, nee=True, mis=True,
+              schedule=schedule)
+    whole, _ = mk.render_mega(mega, cam, 23, 17, spp=4, **kw)
+    parts = []
+    for base, count in ((0, 118), (118, 150), (268, 391 - 268)):
+        for sb in (0, 2):
+            part, _ = _same_bits(mega, cam, 23, 17, spp=2, pixel_base=base,
+                                 pixel_count=count, sample_base=sb, **kw)
+            parts.append(part)
+    halves = [parts[i] + parts[i + 1] for i in range(0, 6, 2)]
+    torch.testing.assert_close(torch.cat(halves), whole, rtol=1e-5,
+                               atol=1e-6)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mk.render_mega(mega, cam, 23, 17, spp=2, pixel_base=268,
+                       pixel_count=124, **kw)
+
+
 @pytest.mark.parametrize("n_boxes,home", [(383, "shared"), (384, "global")])
 def test_kernel_reads_each_table_home(cuda, n_boxes, home):
     """boxfield(383)'s tables fill 231,360 of the 232,372 bytes a block may
@@ -240,6 +266,23 @@ def test_render_hybrid_kernel_matches_plain_pipeline(cuda):
         assert float(sa) == float(sb)
 
 
+def test_render_hybrid_kernel_on_a_pixel_subset(cuda):
+    """The sharded hybrid's call: a slice of the tile order (starting
+    mid-tile) at a sample base, through the kernel and through the plain
+    pipeline, bit for bit, in ascending pixel id order."""
+    cmk, cms, cam, _, _ = _hybrid_setup(cuda)
+    perm = cmk.tile_pixels(32, 24, cuda)[0][100:500]
+    for kw in (dict(key_mode="cell"),
+               dict(key_mode="dir6", compact=(0.5, 0.3, 0.3))):
+        kw = dict(kw, spp=2, seed=2, max_depth=4, nee=True, mis=True,
+                  rr=True, rr_start=1, perm=perm, sample_base=3)
+        a, sa = cmk.render_hybrid(cms, cam, 32, 24, **kw)
+        b, sb = cmk.render_hybrid_reference(cms, cam, 32, 24, **kw)
+        assert a.shape == (400, 3) and float(a.sum()) > 0.0
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert float(sa) == float(sb)
+
+
 def test_fused_bounce_stack_overflow_raises(cuda):
     """A (cyclic) wide node whose 8 always-hit children are itself pushes
     past STACK_CAP: the kernel sets its flag and the wrapper raises."""
@@ -288,6 +331,24 @@ def test_cluster_mega_matches_plain_version(cuda, schedule):
     a, sa = cmk.render_cluster_mega(cms, cam, 32, 24, **kw)
     assert cmk.CLUSTER_MEGA_LAUNCHES == before + 1
     b, sb = cmk.render_cluster_mega_reference(cms, cam, 32, 24, **kw)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(sa) == float(sb)
+
+
+@pytest.mark.parametrize("schedule", ["regen", "batch"])
+def test_cluster_mega_on_a_pixel_subset(cuda, schedule):
+    """The sharded cluster engine's call: 300 pixels of the tile order from
+    position 77 at sample base 5, through kernel 3 and its plain version,
+    bit for bit, rows in the subset's order."""
+    cmk, cms, cam, _, _ = _hybrid_setup(cuda, w=37, h=23)
+    pix = cmk.tile_pixels(37, 23, cuda)[0][77:377]
+    kw = dict(spp=3, seed=9, max_depth=4, nee=True, mis=True, rr=True,
+              rr_start=1, schedule=schedule, pix=pix, sample_base=5)
+    before = cmk.CLUSTER_MEGA_LAUNCHES
+    a, sa = cmk.render_cluster_mega(cms, cam, 37, 23, **kw)
+    assert cmk.CLUSTER_MEGA_LAUNCHES == before + 1
+    b, sb = cmk.render_cluster_mega_reference(cms, cam, 37, 23, **kw)
+    assert a.shape == (300, 3) and float(a.sum()) > 0.0
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert float(sa) == float(sb)
 

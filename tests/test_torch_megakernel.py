@@ -57,14 +57,15 @@ np.savez(a["out"], rad=np.asarray(rad), segs=float(segs))
 """
 
 
-def jax_child(tmp_path, script, **args):
+def jax_child(tmp_path, script, host_devices=1, **args):
     """Run ``script`` (JAX code reading ``json.loads(sys.argv[1])`` and
     saving an .npz at ``args["out"]``) in a child process whose XLA emits no
-    FMA; return the arrays it saved."""
+    FMA, on ``host_devices`` CPU devices; return the arrays it saved."""
     out = str(tmp_path / "jax_child.npz")
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT,
                XLA_FLAGS="--xla_cpu_max_isa=AVX "
-               "--xla_backend_optimization_level=0")
+               "--xla_backend_optimization_level=0 "
+               f"--xla_force_host_platform_device_count={host_devices}")
     proc = subprocess.run(
         [sys.executable, "-c", script, json.dumps(dict(args, out=out))],
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=600,
