@@ -1537,17 +1537,15 @@ def metric_lines(text) -> list:
                                         "LCV:"))]
 
 
-def device_activity(prof, ranges=()):
+def device_activity(prof):
     """From a ``torch.profiler`` trace: (µs during which the card ran
     something — the union of its kernel, copy and set intervals —, {name:
-    (µs, count)} of those activities).  ``ranges``: names of
-    ``record_function`` ranges, whose spans on the device timeline are not
-    activities."""
+    (µs, count)} of those activities)."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name in ranges:
+        if e.device_type != DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         us, n = by_name.get(e.name, (0.0, 0))
@@ -1563,51 +1561,6 @@ def device_activity(prof, ranges=()):
     return busy, by_name
 
 
-# the wavefront's parts, each a record_function range in --engine-ab's
-# profiler window (ranges nest: shade and NEE hold their own draws, NEE its
-# shadow rays, the resort its keys): (range, module path, attribute)
-WAVEFRONT_PARTS = (
-    ("threefry draws", "mcpt_torch.rng", "uniform"),
-    ("camera", "mcpt_torch.render.camera", "generate_rays_for_pixels"),
-    ("kernel 4 closest hit", "mcpt_torch.kernels.traverse_kernel",
-     "intersect_clusters"),
-    ("kernel 4 any hit", "mcpt_torch.kernels.traverse_kernel",
-     "occluded_clusters"),
-    ("shade", "mcpt_torch.render.shade", "shade"),
-    ("NEE", "mcpt_torch.render.integrator", "_nee_contribution"),
-    ("resort keys (Morton)", "mcpt_torch.render.integrator", "_sort_key"),
-    ("resort (keys, sort, gather)", "mcpt_torch.render.integrator",
-     "_resort_pool"),
-)
-
-
-@contextlib.contextmanager
-def wavefront_ranges():
-    """Wrap each of ``WAVEFRONT_PARTS`` in a ``record_function`` range of
-    its name while the block runs (the modules look them up at each call)."""
-    import importlib
-
-    import torch
-
-    saved = []
-
-    def ranged(label, fn):
-        def call(*args, **kwargs):
-            with torch.profiler.record_function(label):
-                return fn(*args, **kwargs)
-        return call
-
-    try:
-        for label, mod, attr in WAVEFRONT_PARTS:
-            m = importlib.import_module(mod)
-            saved.append((m, attr, getattr(m, attr)))
-            setattr(m, attr, ranged(label, getattr(m, attr)))
-        yield
-    finally:
-        for m, attr, fn in saved:
-            setattr(m, attr, fn)
-
-
 def engine_ab_turn(only=(), spp: int = 64, step: int = 4,
                    prof_steps: int = 2) -> dict:
     """One turn of ``--engine-ab`` on one checkout's ``mcpt_torch``: the
@@ -1619,10 +1572,10 @@ def engine_ab_turn(only=(), spp: int = 64, step: int = 4,
     over one step; then ``torch.profiler`` over ``prof_steps`` steps: the
     device's busy share of the window, the top device ops, the
     device-to-host copies a step (each one a wait of the host on the card),
-    and for the wavefront the device time of the torch ops in each of
-    ``WAVEFRONT_PARTS`` (a kernel launched through ctypes is not counted in
-    its range: kernel 4 and threefry stand in the top ops by name) →
-    {label: {metric: value}}."""
+    and for the wavefront the device time of every op launched inside each
+    of its parts: the program's own spans ``mcpt.wavefront.*`` and
+    ``mcpt.rng.uniform`` (spans nest: shade and NEE hold their own draws,
+    NEE its shadow rays, the resort its keys) → {label: {metric: value}}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1674,17 +1627,14 @@ def engine_ab_turn(only=(), spp: int = 64, step: int = 4,
             render(step, cfg.seed)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - base_mem
-            ranges = (wavefront_ranges() if name == "wavefront"
-                      else contextlib.nullcontext())
-            with ranges, profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
                 t1 = time.perf_counter()
                 for i in range(prof_steps):
                     render(step, cfg.seed + i * 7919)
                 torch.cuda.synchronize()
                 window = time.perf_counter() - t1
-            labels = dict.fromkeys(p for p, _, _ in WAVEFRONT_PARTS)
-            busy_us, by_name = device_activity(prof, labels)
+            busy_us, by_name = device_activity(prof)
             d2h = sum(n for key, (_, n) in by_name.items() if "DtoH" in key)
             h2d = [(us, n) for key, (us, n) in by_name.items()
                    if "HtoD" in key]
@@ -1701,7 +1651,8 @@ def engine_ab_turn(only=(), spp: int = 64, step: int = 4,
             if name == "wavefront":
                 parts = {}
                 for e in prof.events():
-                    if e.device_type == DeviceType.CPU and e.name in labels:
+                    if e.device_type == DeviceType.CPU and e.name.startswith(
+                            ("mcpt.wavefront.", "mcpt.rng.")):
                         parts[e.name] = (parts.get(e.name, 0.0)
                                          + e.device_time_total / 1e3)
                 row["parts_ms"] = parts

@@ -15,6 +15,8 @@ module names so each counterpart is easy to find:
 - ``mcpt_torch.kernels``    — hand-written CUDA kernels + their plain twins
 - ``mcpt_torch.convert``    — state conversion to and from ``mcpt``
 - ``mcpt_torch.render_cli`` — the progressive render CLI
+- ``mcpt_torch.trace``      — spans of the engines' stages and host waits,
+  recorded only while ``torch.profiler`` records
 
 Importing the package loads no kernel and touches no device: kernels are
 built with ``nvcc`` and loaded on first use (``mcpt_torch.kernels._build``).

@@ -25,7 +25,7 @@ of every pixel as a flat pool of rays, one lane per (sample, pixel), and runs
   order.  ``render_cluster_mega_reference`` is its plain version, the
   kernel is ``mcpt_torch/csrc/cluster_mega.cu``;
 - the pipeline around it: camera rays, sort keys, the compaction schedule,
-  ``render_hybrid`` and the stage-timed ``profile_hybrid``.
+  ``render_hybrid``, each stage a ``trace.span`` (``mcpt.hybrid.*``).
 
 The state is one (16, N) float32 tensor, a plane per row (``PLANES``), and
 an int32 RNG id per lane (the (sample, pixel) stream, which rides every sort,
@@ -40,7 +40,6 @@ two equal t, so the two can differ only on exact ties across clusters.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
@@ -53,6 +52,7 @@ from mcpt_torch import types as T
 from mcpt_torch.bvh.cluster import STACK_CAP, stack_entries
 from mcpt_torch.bvh.lbvh import morton30, one_thread
 from mcpt_torch.kernels import megakernel as mk
+from mcpt_torch.trace import span
 
 SUBT = 32  # pool rows are a multiple of SUBT (mcpt's ray-block height)
 BLKT = SUBT * 128  # pool quantum, and the pixel-tile size of tile_order
@@ -396,7 +396,9 @@ def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
         raise RuntimeError(f"fused-bounce launch failed: CUDA error {rc} "
                            f"({lib.mcpt_error_string(rc).decode()})")
     LAUNCHES += 1
-    if int(err[0].item()) != 0:
+    with span("mcpt.wait.k2_flag"):
+        overflow = int(err[0].item())
+    if overflow != 0:
         raise RuntimeError(f"fused bounce: traversal stack overflow (> {cap}"
                            " entries); collapse_wide should have rejected "
                            "this tree")
@@ -477,52 +479,57 @@ def _render_cluster_mega_cuda(cms: ClusterMegaScene, cam: T.Camera, width,
     global CLUSTER_MEGA_LAUNCHES
     from mcpt_torch.kernels import _build
 
-    regen = mk._resolve_schedule(schedule, spp)
-    for name in ("matt", "lit"):
-        mk._check_cuda(f"cms.{name}", getattr(cms, name))
-    dev = cms.wnodes.device
-    cap = _check_walk_tables(cms, dev)
-    for t in (cms.matt, cms.lit):
-        if t.device != dev:
-            raise ValueError(f"tables on {t.device} and {dev}")
-    sf = mk._sf(cms, cam, t_min, clamp)
-    mk._check_cuda("camera", sf)
-    if sf.device != dev:
-        raise ValueError(f"camera on {sf.device}, tables on {dev}")
-    _, inv, pix32 = tile_pixels(width, height, dev)
-    if pix is not None:
-        if pix.device != dev or pix.dim() != 1:
-            raise ValueError(f"pix must be a 1-d tensor on {dev}")
-        pix32 = pix.to(torch.int32).contiguous()
-    n_pixels = pix32.numel()
-    si = mk._si(0, cms.n_mats, cms.n_lights, width, height, spp, seed,
-                max_depth, rr, rr_start, n_pixels, 0, sample_base)
-    n_lanes = n_pixels if regen else n_pixels * spp
-    out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
-    # [0] the stack-overflow flag, [1] the next lane to hand out
-    err = torch.zeros(2, dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mcpt_render_cluster(
-            si.ctypes.data, sf.data_ptr(), cms.wnodes.data_ptr(),
-            cms.tri16.data_ptr(), cms.live.data_ptr(), cms.wnodes.shape[0],
-            cms.leaf_size, cap, cms.matt.data_ptr(), cms.lit.data_ptr(),
-            cms.matt.shape[0], cms.lit.shape[0],
-            int(nee and cms.n_lights > 0), int(mis), int(regen),
-            pix32.data_ptr(), n_lanes, out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), out[3].data_ptr(), err.data_ptr(),
-            ctypes.c_void_p(stream))
+    with span("mcpt.cluster_mega.launch"):
+        regen = mk._resolve_schedule(schedule, spp)
+        for name in ("matt", "lit"):
+            mk._check_cuda(f"cms.{name}", getattr(cms, name))
+        dev = cms.wnodes.device
+        cap = _check_walk_tables(cms, dev)
+        for t in (cms.matt, cms.lit):
+            if t.device != dev:
+                raise ValueError(f"tables on {t.device} and {dev}")
+        sf = mk._sf(cms, cam, t_min, clamp)
+        mk._check_cuda("camera", sf)
+        if sf.device != dev:
+            raise ValueError(f"camera on {sf.device}, tables on {dev}")
+        _, inv, pix32 = tile_pixels(width, height, dev)
+        if pix is not None:
+            if pix.device != dev or pix.dim() != 1:
+                raise ValueError(f"pix must be a 1-d tensor on {dev}")
+            pix32 = pix.to(torch.int32).contiguous()
+        n_pixels = pix32.numel()
+        si = mk._si(0, cms.n_mats, cms.n_lights, width, height, spp, seed,
+                    max_depth, rr, rr_start, n_pixels, 0, sample_base)
+        n_lanes = n_pixels if regen else n_pixels * spp
+        out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
+        # [0] the stack-overflow flag, [1] the next lane to hand out
+        err = torch.zeros(2, dtype=torch.int32, device=dev)
+        lib = _build.load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.mcpt_render_cluster(
+                si.ctypes.data, sf.data_ptr(), cms.wnodes.data_ptr(),
+                cms.tri16.data_ptr(), cms.live.data_ptr(),
+                cms.wnodes.shape[0], cms.leaf_size, cap, cms.matt.data_ptr(),
+                cms.lit.data_ptr(), cms.matt.shape[0], cms.lit.shape[0],
+                int(nee and cms.n_lights > 0), int(mis), int(regen),
+                pix32.data_ptr(), n_lanes, out[0].data_ptr(),
+                out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
+                err.data_ptr(), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"cluster megakernel launch failed: CUDA error "
                            f"{rc} ({lib.mcpt_error_string(rc).decode()})")
     CLUSTER_MEGA_LAUNCHES += 1
-    if int(err[0].item()) != 0:
+    with span("mcpt.wait.k3_flag"):
+        overflow = int(err[0].item())
+    if overflow != 0:
         raise RuntimeError(f"cluster megakernel: traversal stack overflow "
                            f"(> {cap} entries); collapse_wide should have "
                            "rejected this tree")
-    radiance, segs = mk._reduce(out, regen, spp, n_pixels)
-    return (radiance[inv] if pix is None else radiance).contiguous(), segs
+    with span("mcpt.cluster_mega.reduce"):
+        radiance, segs = mk._reduce(out, regen, spp, n_pixels)
+        radiance = radiance[inv] if pix is None else radiance
+        return radiance.contiguous(), segs
 
 
 def render_cluster_mega(cms: ClusterMegaScene, cam: T.Camera, width: int,
@@ -585,7 +592,8 @@ def camera_pool(cms: ClusterMegaScene, cam: T.Camera, width: int,
     smp = torch.arange(sample_base, sample_base + spp,
                        device=dev).repeat_interleave(n_px)
     idx = (smp * total + pix) & _M32
-    sf = [float(x) for x in mk._sf(cms, cam, 0.0, 0.0).cpu().tolist()]
+    with span("mcpt.wait.sf"):
+        sf = [float(x) for x in mk._sf(cms, cam, 0.0, 0.0).cpu().tolist()]
     ctx = mk._Ctx(mega=cms, cdf=None, seed=int(seed) & _M32, sf=sf,
                   use_nee=False, use_mis=False)
     o, d = mk._cam_ray(ctx, (pix % width).to(torch.float32),
@@ -697,63 +705,48 @@ def _roulette(state, rid, seed, depth: int, live_cap: float) -> None:
     state[6:9] *= 1.0 / p
 
 
-class _NoTimer:
-    """Stands in for ``runtime.StageTimer`` when nothing is timed."""
-
-    @staticmethod
-    def stage(name):
-        return contextlib.nullcontext()
-
-    @staticmethod
-    def sync(*tensors):
-        pass
-
-
 def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
                 rr_start=3, nee=False, mis=False, clamp=0.0, t_min=1e-4,
-                compact=None, key_mode="auto", timer=None, live=None,
-                bounce=None, perm=None, sample_base=0):
+                compact=None, key_mode="auto", live=None, bounce=None,
+                perm=None, sample_base=0):
     """The pipeline of ``_render_hybrid_jit`` as a loop over depths →
     ((W·H, 3) radiance sum in pixel order, float64 0-d segment count); with
     ``perm`` (pixel ids) the (len(perm), 3) sums of those pixels in
     ascending pixel id order, as ``mcpt``'s final reduce leaves them.
 
-    ``timer`` (a ``StageTimer``) times each stage with a device sync;
-    ``live`` (a list) receives the live share of the pool after each bounce
-    but the last (the pilot's measurement); ``bounce`` replaces
-    ``fused_bounce`` (``render_hybrid_reference`` passes the plain one)."""
+    Each stage is a span (``mcpt.hybrid.raygen``, ``.bounce``,
+    ``.roulette``, ``.sort``, ``.reduce``); ``live`` (a list) receives the
+    live share of the pool after each bounce but the last (the pilot's
+    measurement); ``bounce`` replaces ``fused_bounce``
+    (``render_hybrid_reference`` passes the plain one)."""
     bounce = fused_bounce if bounce is None else bounce
     key_mode = resolve_key_mode(key_mode, compact)
-    timer = timer if timer is not None else _NoTimer
     dev = cms.wnodes.device
     n_px = width * height if perm is None else perm.numel()
     n_rays = n_px * spp
     rows0 = -(-n_rays // BLKT) * SUBT
-    with timer.stage("raygen"):
+    with span("mcpt.hybrid.raygen"):
         state, rid = camera_pool(cms, cam, width, height, spp, seed,
                                  rows0 * 128, perm, sample_base)
-        timer.sync(state)
 
     rows_at = _compaction_schedule(rows0, max_depth, compact)
     segs_total = torch.zeros((), dtype=torch.float64, device=dev)
     tails = []  # dropped (rid, radiance) of compacted-away lanes
     for d in range(max_depth):
-        with timer.stage(f"bounce[d{d}]  ({rows_at[d]}×128 pool)"):
+        with span("mcpt.hybrid.bounce"):
             segs = bounce(cms, state, rid, seed, d, max_depth, rr, rr_start,
                           nee, mis, clamp, t_min)
-            timer.sync(state)
-        segs_total = segs_total + segs.to(torch.float64).sum()
+            segs_total = segs_total + segs.to(torch.float64).sum()
         if live is not None and d + 1 < max_depth:
             live.append(float(state[ALIVE].sum()) / n_rays)
         shrink = d + 1 < max_depth and rows_at[d + 1] < rows_at[d]
         if shrink:
             # 97% of the next pool's lanes: the 3% Bernoulli margin
-            with timer.stage("roulette"):
+            with span("mcpt.hybrid.roulette"):
                 _roulette(state, rid, seed, d, 0.97 * rows_at[d + 1] * 128)
-                timer.sync(state)
         if d + 1 == max_depth:
             break  # the final reduce orders the lanes by id anyway
-        with timer.stage(f"sort[d{d}]"):
+        with span("mcpt.hybrid.sort"):
             key = _hybrid_sort_key(*state[:6], state[ALIVE], cms.bb_lo,
                                    cms.bb_inv_ext, key_mode)
             order = torch.sort(key, stable=True).indices
@@ -770,17 +763,15 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
                 order = order[:rows_at[d + 1] * 128]
             state = state.index_select(1, order)
             rid = rid[order]
-            timer.sync(state)
 
     # restore (sample, pixel) order by RNG id (pixels ascending within a
     # sample), then sum over samples
-    with timer.stage("final-reduce"):
+    with span("mcpt.hybrid.reduce"):
         ids = torch.cat([t[0] for t in tails] + [rid])
         rad = torch.cat([t[1] for t in tails] + [state[9:12]], dim=1)
         order = torch.sort(ids, stable=True).indices[:n_rays]
         radiance = rad[:, order].t().reshape(spp, n_px, 3).sum(dim=0)
-        timer.sync(radiance)
-    return radiance.contiguous(), segs_total
+        return radiance.contiguous(), segs_total
 
 
 def render_hybrid(cms: ClusterMegaScene, cam: T.Camera, width: int,
@@ -821,17 +812,3 @@ def render_hybrid_reference(cms: ClusterMegaScene, cam: T.Camera,
     return _run_hybrid(cms, cam, width, height, spp, seed,
                        bounce=fused_bounce_reference, **kw)
 
-
-def profile_hybrid(cms: ClusterMegaScene, cam: T.Camera, width: int,
-                   height: int, spp: int, seed, timer=None, **kw):
-    """``render_hybrid`` (same arguments) with every stage timed and
-    synchronised → (timer, radiance, segments): raygen, each bounce with
-    its pool height, roulette, each sort and the final reduce (the
-    breakdown behind the CLI's ``--profile``).  Same arithmetic, so the
-    same bits."""
-    from mcpt_torch.runtime import StageTimer
-
-    timer = timer if timer is not None else StageTimer()
-    radiance, segs = _run_hybrid(cms, cam, width, height, spp, seed,
-                                 timer=timer, **kw)
-    return timer, radiance, segs

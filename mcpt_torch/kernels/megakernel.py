@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from mcpt_torch import types as T
+from mcpt_torch.trace import span
 
 # Scenes up to this size keep their triangle rows in scene order (the TPU
 # kernel fully unrolls them); past it, rows are Morton-sorted into
@@ -848,45 +849,49 @@ def _render_mega_cuda(mega: MegaScene, cam: T.Camera, width, height, spp,
     global LAUNCHES
     from mcpt_torch.kernels import _build
 
-    regen = _resolve_schedule(schedule, spp)
-    n_pixels = width * height if pixel_count is None else pixel_count
-    for name in ("tri", "cbox", "matt", "lit"):
-        _check_cuda(f"mega.{name}", getattr(mega, name))
-    for name in ("tri", "cbox"):  # read as float4s
-        if getattr(mega, name).data_ptr() % 16:
-            raise ValueError(f"mega.{name} must be 16-byte aligned")
-    sf = _sf(mega, cam, t_min, clamp)
-    _check_cuda("camera", sf)
-    dev = mega.tri.device
-    if sf.device != dev:
-        raise ValueError(f"camera on {sf.device}, tables on {dev}")
-    si = _si(mega.n_tris, mega.n_mats, mega.n_lights, width, height, spp,
-             seed, max_depth, rr, rr_start, n_pixels, pixel_base, sample_base)
-    n_lanes = n_pixels if regen else n_pixels * spp
-    rows = (mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
-            mega.cbox.shape[0])
-    home = table_home(*rows)
-    out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
-    if lib is None:
-        lib = _build.load()
-    # the C side launches on the calling thread's current device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mcpt_render_mega(
-            si.ctypes.data, sf.data_ptr(), mega.tri.data_ptr(),
-            mega.matt.data_ptr(), mega.lit.data_ptr(), mega.cbox.data_ptr(),
-            *rows, int(tier(mega.n_tris) == "chunked"),
-            int(nee and mega.n_lights > 0), int(mis), int(regen),
-            _HOME_CODES[home], out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), out[3].data_ptr(), ctypes.c_void_p(stream),
-        )
+    with span("mcpt.mega.launch"):
+        regen = _resolve_schedule(schedule, spp)
+        n_pixels = width * height if pixel_count is None else pixel_count
+        for name in ("tri", "cbox", "matt", "lit"):
+            _check_cuda(f"mega.{name}", getattr(mega, name))
+        for name in ("tri", "cbox"):  # read as float4s
+            if getattr(mega, name).data_ptr() % 16:
+                raise ValueError(f"mega.{name} must be 16-byte aligned")
+        sf = _sf(mega, cam, t_min, clamp)
+        _check_cuda("camera", sf)
+        dev = mega.tri.device
+        if sf.device != dev:
+            raise ValueError(f"camera on {sf.device}, tables on {dev}")
+        si = _si(mega.n_tris, mega.n_mats, mega.n_lights, width, height,
+                 spp, seed, max_depth, rr, rr_start, n_pixels, pixel_base,
+                 sample_base)
+        n_lanes = n_pixels if regen else n_pixels * spp
+        rows = (mega.tri.shape[0], mega.matt.shape[0], mega.lit.shape[0],
+                mega.cbox.shape[0])
+        home = table_home(*rows)
+        out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
+        if lib is None:
+            lib = _build.load()
+        # the C side launches on the calling thread's current device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.mcpt_render_mega(
+                si.ctypes.data, sf.data_ptr(), mega.tri.data_ptr(),
+                mega.matt.data_ptr(), mega.lit.data_ptr(),
+                mega.cbox.data_ptr(), *rows,
+                int(tier(mega.n_tris) == "chunked"),
+                int(nee and mega.n_lights > 0), int(mis), int(regen),
+                _HOME_CODES[home], out[0].data_ptr(), out[1].data_ptr(),
+                out[2].data_ptr(), out[3].data_ptr(),
+                ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"megakernel launch failed: CUDA error {err} "
             f"({lib.mcpt_error_string(err).decode()})")
     LAUNCHES += 1
     HOMES[home] += 1
-    return _reduce(out, regen, spp, n_pixels)
+    with span("mcpt.mega.reduce"):
+        return _reduce(out, regen, spp, n_pixels)
 
 
 def render_mega(mega: MegaScene, cam: T.Camera, width: int, height: int,

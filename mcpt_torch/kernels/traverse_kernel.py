@@ -33,6 +33,7 @@ import math
 import torch
 
 from mcpt_torch.kernels import cluster_megakernel as cmk
+from mcpt_torch.trace import span, spanned
 from mcpt_torch.types import Hit
 
 _MISS = 3.0e38  # t of a miss in the raw outputs (the kernels' kMiss)
@@ -70,7 +71,9 @@ def overflow_checked_once():
 
 
 def _raise_on_overflow(err: torch.Tensor, cap: int) -> None:
-    if int(err.item()) != 0:
+    with span("mcpt.wait.k4_flag"):
+        overflow = int(err.item())
+    if overflow != 0:
         raise RuntimeError(f"traverse: stack overflow (> {cap} entries); "
                            "collapse_wide should have rejected this tree")
 
@@ -227,6 +230,7 @@ def hit_from_rows(cl, origin, direction, t, row, normal) -> Hit:
                normal=torch.where(valid[:, None], normal, 0.0))
 
 
+@spanned("mcpt.wavefront.closest_hit")
 def intersect_clusters(cl, origin, direction, active=None, t_max=None,
                        t_min: float = 1e-4) -> Hit:
     """Closest hit over the cluster BVH ``cl`` → ``types.Hit``; a drop-in
@@ -246,6 +250,7 @@ def intersect_clusters(cl, origin, direction, active=None, t_max=None,
     return hit_from_rows(cl, origin, direction, t, row, normal)
 
 
+@spanned("mcpt.wavefront.any_hit")
 def occluded_clusters(cl, origin, direction, t_max, active=None,
                       t_min: float = 1e-4) -> torch.Tensor:
     """Any-hit query: True where a triangle lies in (t_min, t_max) on an

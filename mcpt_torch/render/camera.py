@@ -20,6 +20,7 @@ import torch
 
 from mcpt_torch import rng
 from mcpt_torch.config import CameraConfig
+from mcpt_torch.trace import spanned
 from mcpt_torch.types import Camera, RayPool
 
 
@@ -113,6 +114,7 @@ def generate_rays(camera: Camera, width: int, height: int,
                                     jitter=jitter)
 
 
+@spanned("mcpt.wavefront.camera")
 def generate_rays_for_pixels(camera: Camera, width: int, height: int,
                              pix: torch.Tensor, key: rng.Key | None = None,
                              jitter: bool = True) -> RayPool:

@@ -27,6 +27,7 @@ from mcpt_torch.render import camera as camera_mod
 from mcpt_torch.render import shade as shade_mod
 from mcpt_torch.render import traverse
 from mcpt_torch.render.traverse import dot
+from mcpt_torch.trace import span, spanned
 from mcpt_torch.types import Framebuffer, RayPool
 
 DEAD_KEY = 0x7FFFFFFF  # resort key of a dead ray: dead rays sort last
@@ -57,7 +58,9 @@ class RenderOptions(NamedTuple):
 
 def accumulate(fb: Framebuffer, radiance_sum, spp: int = 1) -> Framebuffer:
     """Exact running (sum, count): every sample counts (unbiased mean)."""
-    return Framebuffer(sum=fb.sum + radiance_sum, count=fb.count + float(spp))
+    with span("mcpt.accumulate"):
+        return Framebuffer(sum=fb.sum + radiance_sum,
+                           count=fb.count + float(spp))
 
 
 def framebuffer_image(fb: Framebuffer, width: int, height: int) -> np.ndarray:
@@ -66,6 +69,7 @@ def framebuffer_image(fb: Framebuffer, width: int, height: int) -> np.ndarray:
     return fb.mean.detach().cpu().numpy().reshape(height, width, 3)
 
 
+@spanned("mcpt.wavefront.nee")
 def _nee_contribution(scene, lights, res: shade_mod.ShadeResult, hit_point,
                       wo, key: rng.Key, opts: RenderOptions) -> torch.Tensor:
     """One area-uniform light sample per ray, its shadow ray and the MIS
@@ -133,6 +137,7 @@ def _scene_box(scene):
     return bb_lo, 1.0 / torch.clamp(ext, min=1e-12)
 
 
+@spanned("mcpt.wavefront.resort_keys")
 def _sort_key(pool: RayPool, bb_lo, inv_ext, coarse_bits: int = 6):
     """Coherence key (< 2³⁰): coarse origin cell (``coarse_bits`` Morton
     bits), direction octant, fine origin Morton bits."""
@@ -149,6 +154,7 @@ def _sort_key(pool: RayPool, bb_lo, inv_ext, coarse_bits: int = 6):
     return (coarse << (3 + fine_bits)) | (octant << fine_bits) | fine
 
 
+@spanned("mcpt.wavefront.resort")
 def _resort_pool(pool: RayPool, prev_scatter, prev_pdf, orig_idx, bb_lo,
                  inv_ext, coarse_bits: int = 6):
     """The pool stably sorted by ``_sort_key``, dead rays last: one stable

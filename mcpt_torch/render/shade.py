@@ -24,6 +24,7 @@ import torch
 from mcpt_torch import rng
 from mcpt_torch.render.camera import recip_f32
 from mcpt_torch.render.traverse import dot
+from mcpt_torch.trace import spanned
 from mcpt_torch.types import (DIFFUSE, EPSILON, GLOSSY, LIGHT, TRANSPARENT,
                               Hit, Materials, RayPool)
 
@@ -128,6 +129,7 @@ class ShadeResult(NamedTuple):
     bsdf_pdf: torch.Tensor  # (R,) pdf of the sampled direction (for MIS)
 
 
+@spanned("mcpt.wavefront.shade")
 def shade(materials: Materials, tri_mat_id: torch.Tensor, pool: RayPool,
           hit: Hit, key: rng.Key, depth: int, max_depth: int,
           rr_enabled: bool = False, rr_start_depth: int = 3,

@@ -49,6 +49,8 @@ import torch
 # --crossover` (PERF.md §5): the megakernel wins at 1564 tris (573 vs 377
 # Mrays/s), the hybrid at 1804 (426 vs 287).
 MEGA_MAX_TRIS = 1700
+# --profile: steps traced after the first one (which loads the kernels)
+PROFILE_STEPS = 4
 
 
 def build_from_config(cfg, device):
@@ -101,10 +103,10 @@ def main(argv=None):
                          "wavefront engine; auto = on when its intersector "
                          "resolves to the cluster kernel")
     ap.add_argument("--profile", action="store_true",
-                    help="per-stage timing report at exit (StageTimer); the "
-                         "hybrid engine also prints a per-bounce "
-                         "bounce/sort/roulette/reduce breakdown of one "
-                         "instrumented step")
+                    help=f"run the {PROFILE_STEPS} steps after the first "
+                         "under torch.profiler, unsynchronised, and print "
+                         "the engine's mcpt. spans (calls, host, device and "
+                         "idle ms a step) and the card's busy share")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda runs the CUDA kernels, cpu the "
                          "plain PyTorch versions")
@@ -161,6 +163,7 @@ def _render(args, cfg, device, mesh=None, mesh_header=None) -> int:
     from mcpt_torch.render import camera as camera_mod
     from mcpt_torch.render import integrator as integ
     from mcpt_torch.render import traverse
+    from mcpt_torch.trace import span
     from mcpt_torch.types import make_framebuffer
 
     writer = mesh is None or mesh.si == mesh.pi == 0
@@ -276,28 +279,28 @@ def _render(args, cfg, device, mesh=None, mesh_header=None) -> int:
             spp = ((spp + d_s - 1) // d_s) * d_s
             print(f"spp rounded up to {spp} (samples axis = {d_s})")
     done = start_s
-    timer = runtime.StageTimer() if args.profile else None
+    n_steps, prof = 0, None
     # measured Mrays/s: live segments (closest-hit queries on live paths +
     # NEE shadow rays), counted by the kernel itself
     segs_done, segs_last = 0.0, 0.0
     snap_last, ckpt_last = done, done
     while done < spp:
         step = min(step_size, spp - done)
-        if timer is not None:
-            with timer.stage("render_step"):
-                radiance, segs = render_step(cfg.seed + done * 7919, step)
-                timer.sync(radiance, segs)
-            with timer.stage("accumulate"):
-                fb = integ.accumulate(fb, radiance, spp=step)
-                timer.sync(fb.sum)
-        else:
-            radiance, segs = render_step(cfg.seed + done * 7919, step)
-            fb = integ.accumulate(fb, radiance, spp=step)
+        if args.profile and n_steps == 1:
+            prof = _profile_start(device)
+        radiance, segs = render_step(cfg.seed + done * 7919, step)
+        fb = integ.accumulate(fb, radiance, spp=step)
         done += step
-        segs_done += float(segs)  # waits for the step (device scalar read)
+        with span("mcpt.wait.segments"):
+            segs_done += float(segs)  # waits for the step
+        n_steps += 1
+        if prof is not None and (n_steps > PROFILE_STEPS or done == spp):
+            _profile_stop(prof, device, n_steps - 1)
+            prof = None
         now = time.time()
         if now - t_last > 2.0 or done == spp:
-            runtime.StageTimer.sync(fb.sum)
+            if device.type == "cuda" and prof is None:
+                torch.cuda.synchronize(device)
             now = time.time()
             sps = (done - s_last) / max(now - t_last, 1e-9)
             rays = runtime.mrays(segs_done - segs_last, now - t_last)
@@ -324,27 +327,44 @@ def _render(args, cfg, device, mesh=None, mesh_header=None) -> int:
     img = integ.framebuffer_image(fb, width, height)
     # final outputs: .hdr like the reference (colorout.cpp:63-68) + png + exr
     if writer:
-        with (timer.stage("image_io") if timer is not None
-              else contextlib.nullcontext()):
-            im.write_hdr(os.path.join(args.out, f"{stem}.hdr"), img)
-            im.write_png(os.path.join(args.out, f"{stem}.png"),
-                         im.tonemap_srgb(img[::-1]))
-            im.write_exr(os.path.join(args.out, f"{stem}.exr"), img[::-1])
+        im.write_hdr(os.path.join(args.out, f"{stem}.hdr"), img)
+        im.write_png(os.path.join(args.out, f"{stem}.png"),
+                     im.tonemap_srgb(img[::-1]))
+        im.write_exr(os.path.join(args.out, f"{stem}.exr"), img[::-1])
     print("Finished Attempting")  # parity with colorout.cpp:65
     print(f"wrote {stem}.hdr/.png/.exr in {args.out}")
-    if timer is not None:
-        print("\nprofile: CLI stage totals (the first render_step includes "
-              "the kernel build)")
-        print(timer.report())
-        if engine == "hybrid" and mesh is None:
-            print("\nprofile: hybrid per-bounce breakdown (one instrumented "
-                  "step after a warm-up one)")
-            prof_kw = dict(step_kw, spp=min(step_size, spp),
-                           seed=cfg.seed + (spp + 1) * 7919)
-            cmk.profile_hybrid(cms, cam, width, height, **prof_kw)
-            t2, _, _ = cmk.profile_hybrid(cms, cam, width, height, **prof_kw)
-            print(t2.report())
+    if args.profile and n_steps < 2:
+        print("profile: no step after the first to trace")
     return 0
+
+
+def _profile_start(device):
+    """A ``torch.profiler`` session over the host and, on CUDA, the card,
+    started now."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _profile_stop(prof, device, steps: int) -> None:
+    """Stop ``prof`` once the card is done and print its ``mcpt.`` spans
+    over its ``steps`` steps."""
+    import warnings
+
+    from mcpt_torch import trace
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    with warnings.catch_warnings():
+        # one profiling cycle: its "clears events" notice does not apply
+        warnings.simplefilter("ignore", UserWarning)
+        prof.stop()
+    print(trace.report(prof, steps), flush=True)
 
 
 if __name__ == "__main__":

@@ -33,6 +33,8 @@ from typing import NamedTuple
 
 import torch
 
+from mcpt_torch.trace import spanned
+
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -162,6 +164,7 @@ def bits(k: Key, shape, device="cuda") -> torch.Tensor:
     return _draw(k, shape, device, uniform=False)
 
 
+@spanned("mcpt.rng.uniform")
 def uniform(k: Key, shape, device="cuda") -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32)`` in [0, 1)."""
     return _draw(k, shape, device, uniform=True)

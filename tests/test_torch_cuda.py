@@ -751,3 +751,89 @@ def test_lcv_and_epo_on_cuda(cuda):
     host = metrics.epo(bvh, loaded.verts)
     walk = metrics.epo(bvh, loaded.verts, use_native="never", device=cuda)
     assert abs(walk - host) <= 1e-6 * max(host, 1.0)
+
+
+def _profiled_on_card(fn):
+    """fn() under ``torch.profiler`` over the host and the card → (its
+    result, Counter of its mcpt. host spans, {span: its event}, the names of
+    mcpt. events on the device timeline)."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name.startswith("mcpt.")]
+    echoes = [e.name for e in events if e.device_type == DeviceType.CUDA
+              and e.name.startswith("mcpt.")]
+    return (out, collections.Counter(e.name for e in host),
+            {e.name: e for e in host}, echoes)
+
+
+@pytest.mark.parametrize("engine", ["mega", "cluster_mega", "hybrid",
+                                    "wavefront"])
+def test_engine_spans_on_the_card(cuda, engine):
+    """Each engine on the card under the profiler: the bits it gives
+    unprofiled; its launch, reduce and wait spans (one wait a flag read:
+    kernel 2's each bounce, kernel 3's each step, kernel 4's once a bounce
+    loop), none echoed on the device timeline, and device time under the
+    span that launches the engine's kernel."""
+    from mcpt_torch import rng
+    from mcpt_torch.render import integrator as integ
+
+    kw = dict(spp=2, seed=4, max_depth=4, nee=True, mis=True, rr=True,
+              rr_start=1)
+    if engine == "mega":
+        mega, cam = _setup("cornell_box", 24, 16, cuda)
+
+        def render():
+            return mk.render_mega(mega, cam, 24, 16, **kw)
+        want = {"mcpt.mega.launch": 1, "mcpt.mega.reduce": 1}
+        launcher = "mcpt.mega.launch"
+    elif engine == "wavefront":
+        loaded, camcfg = scenes.boxfield(60)
+        scene, lights = build_scene(loaded, device=cuda)
+        cam = make_camera(dataclasses.replace(camcfg, resolution=(32, 24)),
+                          device=cuda)
+        opts = integ.RenderOptions(max_depth=4, nee=True, mis=True,
+                                   russian_roulette=True, rr_start_depth=1,
+                                   resort=True)
+
+        def render():
+            return integ.render_batch(scene, lights, cam, 32, 24,
+                                      rng.key(2), opts, spp=2,
+                                      with_stats=True)
+        want = {"mcpt.wavefront.camera": 2, "mcpt.rng.uniform": 2 + 2 * 4,
+                "mcpt.wavefront.closest_hit": 4, "mcpt.wavefront.any_hit": 4,
+                "mcpt.wavefront.shade": 4, "mcpt.wavefront.nee": 4,
+                "mcpt.wavefront.resort": 4, "mcpt.wavefront.resort_keys": 4,
+                "mcpt.wait.k4_flag": 1}
+        launcher = "mcpt.wavefront.closest_hit"
+    elif engine == "cluster_mega":
+        cmk, cms, cam, _, _ = _hybrid_setup(cuda)
+
+        def render():
+            return cmk.render_cluster_mega(cms, cam, 32, 24, **kw)
+        want = {"mcpt.cluster_mega.launch": 1, "mcpt.wait.k3_flag": 1,
+                "mcpt.cluster_mega.reduce": 1}
+        launcher = "mcpt.cluster_mega.launch"
+    else:
+        cmk, cms, cam, _, _ = _hybrid_setup(cuda)
+
+        def render():
+            return cmk.render_hybrid(cms, cam, 32, 24, **kw)
+        want = {"mcpt.hybrid.raygen": 1, "mcpt.wait.sf": 1,
+                "mcpt.hybrid.bounce": 4, "mcpt.wait.k2_flag": 4,
+                "mcpt.hybrid.sort": 3, "mcpt.hybrid.reduce": 1}
+        launcher = "mcpt.hybrid.bounce"
+    a, sa = render()
+    (b, sb), counts, spans, echoes = _profiled_on_card(render)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(sa) == float(sb)
+    assert dict(counts) == want and echoes == []
+    assert spans[launcher].device_time_total > 0.0

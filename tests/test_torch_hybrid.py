@@ -204,15 +204,23 @@ def test_render_hybrid_matches_mcpt(tmp_path, boxfield60, w, h, kw):
 
 
 def test_profile_hybrid_gives_render_hybrids_bits(boxfield60):
+    """Profiled (``torch.profiler``, whose ranges are the stages' spans),
+    the hybrid gives the same bits, and each stage is a span: a bounce a
+    depth, a sort a depth but the last, a roulette where the pool
+    shrinks."""
+    from torch.profiler import ProfilerActivity, profile
+
     cms, camcfg = boxfield60
     cam = make_camera(dataclasses.replace(camcfg, resolution=(64, 64)),
                       device="cpu")
     kw = dict(spp=2, seed=1, max_depth=3, nee=True, mis=True, rr=True,
               rr_start=1, compact=(0.3, 0.2))
     a, sa = cmk.render_hybrid(cms, cam, 64, 64, **kw)
-    timer, b, sb = cmk.profile_hybrid(cms, cam, 64, 64, **kw)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        b, sb = cmk.render_hybrid(cms, cam, 64, 64, **kw)
     assert torch.equal(a, b) and float(sa) == float(sb)
-    names = set(timer.totals)
-    assert {"raygen", "roulette", "final-reduce"} <= names
-    assert any(n.startswith("bounce[d2]") for n in names)
-    assert any(n.startswith("sort[d0]") for n in names)
+    names = [e.name for e in prof.events() if e.name.startswith("mcpt.")]
+    assert {n: names.count(n) for n in set(names)} == {
+        "mcpt.hybrid.raygen": 1, "mcpt.wait.sf": 1, "mcpt.hybrid.bounce": 3,
+        "mcpt.hybrid.roulette": 1, "mcpt.hybrid.sort": 2,
+        "mcpt.hybrid.reduce": 1}
