@@ -26,8 +26,11 @@ stack and spill of the kernel), 8 whole ``render_hybrid`` through the
 kernel vs through the plain version on boxfield(60) and a small diningroom
 view, 9 oracles (hybrid vs megakernel on the same streams; the diningroom
 golden), 10 main path (``render_cli`` on configs 7 and 8 at their own size,
-16 spp, and config 9 at 4 spp), 11 one bounce at config 8's own pool
-(3,686,400 rays, depths 0 and 1), kernel vs plain version, timed.
+16 spp, and config 9 at 4 spp; the launches of kernel 2 and of the
+between-bounce kernels), 11 one bounce at config 8's own pool (3,686,400
+rays, depths 0 and 1), kernel vs plain version, timed, then the
+between-bounce kernels (``csrc/hybrid_stage.cu``) on the depth-1 pool
+against their plain versions, timed beside their bounds.
 
 Phases, cluster megakernel (kernel 3) and wavefront traversal (kernel 4):
 12 build report (ptxas's registers, stack and spill of every kernel, kernel
@@ -552,7 +555,7 @@ def run_hybrid(card) -> dict:
     phase(10, "main path: mcpt_torch.render_cli on configs 7, 8 and 9")
     runs = [(7, ["--spp", "16"], 4), (8, ["--spp", "16"], 4),
             (9, ["--spp", "4"], 1)]
-    cmk.LAUNCHES = mk.LAUNCHES = 0
+    cmk.LAUNCHES = mk.LAUNCHES = cmk.HYBRID_STAGE_LAUNCHES = 0
     expected = 0
     main_path = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -598,6 +601,14 @@ def run_hybrid(card) -> dict:
     if launches != expected or mk.LAUNCHES != 0:
         raise AssertionError("the CLI did not run every bounce through the "
                              "fused-bounce kernel")
+    # a re-sort after every bounce but a render's last: a key and a reorder
+    # launch each; a roulette where the pool shrinks: 2 more
+    stage, sorts = cmk.HYBRID_STAGE_LAUNCHES, expected // 8 * 7
+    print(f"between-bounce kernel launches: {stage} ({sorts} re-sorts × 2 "
+          f"+ {(stage - 2 * sorts) // 2} roulettes × 2)")
+    if stage < 2 * sorts or stage % 2:
+        raise AssertionError("the CLI did not run every re-sort through the "
+                             "between-bounce kernels")
     out["launches"] = launches
     out["main_path"] = main_path
 
@@ -659,6 +670,9 @@ def run_hybrid(card) -> dict:
               f"every row of the visited clusters ({work['all_rows']}, the "
               f"count before the walk skipped padding): {b_all:.4f} ms")
         times[depth] = (ms, plain_ms, b_ms, b_by)
+        if depth == 1:
+            out["stage"] = hybrid_stage_report(cms, a, rid, kw["seed"],
+                                               key_mode, card)
         # the next depth starts from the kernel's output, re-sorted as the
         # pipeline sorts it
         key = cmk._hybrid_sort_key(*a[:6], a[cmk.ALIVE], cms.bb_lo,
@@ -669,6 +683,75 @@ def run_hybrid(card) -> dict:
     out["ms"], out["plain_ms"], out["bound_ms"], out["bound_by"] = times[0]
     out["max_abs_err"] = max_abs
     return out
+
+
+def hybrid_stage_report(cms, state, rid, seed, key_mode, card,
+                        reps: int = 20) -> dict:
+    """The between-bounce kernels (``csrc/hybrid_stage.cu``) against their
+    plain versions on a pool that kernel 2 has just bounced: each one's
+    time by CUDA events (the kernels over ``reps`` calls; the plain
+    versions, chains of small ops, over 3, as the pipeline runs them), the
+    bytes that bound it at 3.35 TB/s, counted from what these inputs need,
+    and the bits.  The roulette caps the pool at 97% of half its lanes (p <
+    1), the reorder keeps all of it and then half."""
+    import torch
+
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+
+    n = state.shape[1]
+    live = int((state[cmk.ALIVE] > 0).sum())
+    cap = 0.97 * (n // 2)
+    box = (cms.bb_lo, cms.bb_inv_ext, key_mode)
+    saved = cmk.HYBRID_STAGE_LAUNCHES
+    rows = {}
+
+    def row(name, kernel, plain, same, moved):
+        k_ms, _ = cuda_ms(kernel, reps)
+        p_ms, _ = cuda_ms(plain, 3)
+        b_ms = moved / H100_BYTES_PER_S * 1e3
+        rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, same=same)
+        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({moved / 1e6:.0f} MB), bit-equal {same} | "
+              f"{card}")
+        if not same:
+            raise AssertionError(f"{name}: kernel disagrees with the plain "
+                                 "version")
+
+    a, b = state.clone(), state.clone()
+    cmk.roulette(a, rid, seed, 3, cap)
+    cmk._roulette(b, rid, seed, 3, cap)
+    x = state.clone()
+    row("roulette (live count + select)",
+        lambda: cmk.roulette(x, rid, seed, 3, cap),
+        lambda: cmk._roulette(x, rid, seed, 3, cap), torch.equal(a, b),
+        24 * n + 16 * n)
+    planes = (*state[:6], state[cmk.ALIVE])
+    key = cmk.sort_key(*planes, *box)
+    row("sort keys", lambda: cmk.sort_key(*planes, *box),
+        lambda: cmk._hybrid_sort_key(*planes, *box),
+        torch.equal(key, cmk._hybrid_sort_key(*planes, *box)),
+        8 * n + 24 * live)
+    k_ms, order = cuda_ms(lambda: torch.sort(key, stable=True).indices, reps)
+    rows["torch.sort"] = dict(ms=k_ms)
+    print(f"  torch.sort (stable, int32 keys, int64 indices): {k_ms:.4f} ms "
+          f"| {card}")
+    total = torch.zeros((), dtype=torch.float64, device=state.device)
+    for keep in (n, n // 2):
+        got = cmk.reorder(state, rid, order, keep, total.clone())
+        want = cmk._reorder_reference(state, rid, order, keep, total.clone())
+        # a live lane in the dropped half sets the canary in both
+        canary = bool(got[3].isnan())
+        same = (all(torch.equal(u, v) for u, v in zip(
+            got[:2] + (got[2] or ()), want[:2] + (want[2] or ())))
+            and canary == bool(want[3].isnan())
+            and (canary or torch.equal(got[3], want[3])))
+        tail = n - keep
+        row(f"reorder, keep {keep} of {n}",
+            lambda: cmk.reorder(state, rid, order, keep, total),
+            lambda: cmk._reorder_reference(state, rid, order, keep, total),
+            same, 8 * n + 68 * keep * 2 + 20 * tail + 16 * tail)
+    cmk.HYBRID_STAGE_LAUNCHES = saved  # not main-path launches
+    return rows
 
 
 def walk_report(tables, kernel: str, blocks_per_sm: int,

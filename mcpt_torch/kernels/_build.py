@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mcpt_torch"
 SOURCES = ("megakernel.cu", "fused_bounce.cu", "cluster_mega.cu",
-           "traverse.cu", "fma_peak.cu", "threefry.cu")
+           "traverse.cu", "fma_peak.cu", "threefry.cu", "hybrid_stage.cu")
 # -fmad=false: no contracted multiply-adds, so the kernels round as the plain
 # PyTorch versions do (see csrc/bounce_core.cuh); no fast math either
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -175,6 +175,15 @@ def load(flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
     lib.mcpt_threefry.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
                                   ctypes.c_uint64, i32, ptr, ptr]
     lib.mcpt_threefry.restype = i32
+    u32 = ctypes.c_uint32
+    lib.mcpt_hybrid_roulette.argtypes = [ptr, ptr, i32, f32, u32, u32, ptr,
+                                         ptr]
+    lib.mcpt_hybrid_sort_key.argtypes = ([ptr] * 7 + [i32] + [f32] * 6
+                                         + [i32] * 2 + [ptr, ptr])
+    lib.mcpt_hybrid_reorder.argtypes = [ptr] * 3 + [i32] * 2 + [ptr] * 6
+    for fn in (lib.mcpt_hybrid_roulette, lib.mcpt_hybrid_sort_key,
+               lib.mcpt_hybrid_reorder):
+        fn.restype = i32
     lib.mcpt_error_string.argtypes = [i32]
     lib.mcpt_error_string.restype = ctypes.c_char_p
     return lib

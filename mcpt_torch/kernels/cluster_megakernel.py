@@ -25,7 +25,11 @@ of every pixel as a flat pool of rays, one lane per (sample, pixel), and runs
   order.  ``render_cluster_mega_reference`` is its plain version, the
   kernel is ``mcpt_torch/csrc/cluster_mega.cu``;
 - the pipeline around it: camera rays, sort keys, the compaction schedule,
-  ``render_hybrid``, each stage a ``trace.span`` (``mcpt.hybrid.*``).
+  ``render_hybrid``, each stage a ``trace.span`` (``mcpt.hybrid.*``).  The
+  stages between two bounces (``roulette``, ``sort_key`` and ``reorder``
+  around ``torch.sort``) dispatch as ``fused_bounce`` does: their plain
+  versions for CPU tensors, the hand-written kernels of
+  ``mcpt_torch/csrc/hybrid_stage.cu`` for CUDA tensors.
 
 The state is one (16, N) float32 tensor, a plane per row (``PLANES``), and
 an int32 RNG id per lane (the (sample, pixel) stream, which rides every sort,
@@ -43,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from collections.abc import Callable
 from typing import NamedTuple
 
 import numpy as np
@@ -71,6 +76,10 @@ _LANE_CHUNK = 1 << 18
 # versions' calls) — read by chip_smoke.py to show the main path used them
 LAUNCHES = 0
 CLUSTER_MEGA_LAUNCHES = 0
+# launches of the between-bounce kernels (csrc/hybrid_stage.cu) made by
+# ``roulette`` (2: the live count, the selection), ``sort_key`` (1) and
+# ``reorder`` (1) on CUDA tensors
+HYBRID_STAGE_LAUNCHES = 0
 # work done by ``walk_reference``: child boxes slab-tested (8 per internal
 # pop) and triangle rows Wald-tested (a leaf's live rows; an any-hit walk
 # stops at its first hit, as the CUDA walk does) — the counts behind
@@ -353,16 +362,10 @@ def fused_bounce_reference(cms: ClusterMegaScene, state: torch.Tensor,
     return segs
 
 
-def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
-                       max_depth, rr, rr_start, nee, mis, clamp, t_min):
-    """Launch ``mcpt_torch/csrc/fused_bounce.cu`` on the current stream; it
-    updates ``state`` in place.  Raises on a refused launch and on the
-    kernel's stack-overflow flag (read back, so this call synchronises)."""
-    global LAUNCHES
-    from mcpt_torch.kernels import _build
-
-    for name in ("matt", "lit"):
-        mk._check_cuda(f"cms.{name}", getattr(cms, name))
+def _check_pool(state, rid) -> tuple:
+    """The checks of a kernel's wrapper on the pool it is handed: a
+    contiguous float32 (16, N) CUDA ``state`` and a contiguous int32 (N,)
+    ``rid`` on its device → (device, N)."""
     mk._check_cuda("state", state)
     dev = state.device
     if state.dim() != 2 or state.shape[0] != len(PLANES):
@@ -373,6 +376,20 @@ def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
             or tuple(rid.shape) != (n,) or not rid.is_contiguous()):
         raise ValueError(f"rid must be a contiguous int32 ({n},) tensor on "
                          f"{dev}")
+    return dev, n
+
+
+def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
+                       max_depth, rr, rr_start, nee, mis, clamp, t_min):
+    """Launch ``mcpt_torch/csrc/fused_bounce.cu`` on the current stream; it
+    updates ``state`` in place.  Raises on a refused launch and on the
+    kernel's stack-overflow flag (read back, so this call synchronises)."""
+    global LAUNCHES
+    from mcpt_torch.kernels import _build
+
+    for name in ("matt", "lit"):
+        mk._check_cuda(f"cms.{name}", getattr(cms, name))
+    dev, n = _check_pool(state, rid)
     cap = _check_walk_tables(cms, dev)
     for t in (cms.matt, cms.lit):
         if t.device != dev:
@@ -705,10 +722,152 @@ def _roulette(state, rid, seed, depth: int, live_cap: float) -> None:
     state[6:9] *= 1.0 / p
 
 
+def _reorder_reference(state, rid, order, keep: int, segs_total):
+    """The pool in sorted ``order`` (int64 lane ids) → (state, rid, tail,
+    segs_total): the first ``keep`` lanes as the next pool and, where the
+    pool shrinks, the dropped lanes' (rid, (3, n) radiance) as ``tail``
+    (else None).  Dead rays sort last, so the dropped tail is all dead; its
+    radiance rides to the final reduce.  A live ray there (the 3% margin
+    blown, P < 1e-200) poisons the segment count instead of silently
+    biasing the image."""
+    tail = None
+    if keep < order.numel():
+        dropped = order[keep:]
+        tail_alive = state[ALIVE, dropped].sum()
+        segs_total = segs_total + torch.where(
+            tail_alive > 0.0, math.nan, 0.0).to(torch.float64)
+        tail = (rid[dropped], state[9:12, dropped])
+        order = order[:keep]
+    return state.index_select(1, order), rid[order], tail, segs_total
+
+
+_KEY_MODES = ("cell", "dir", "dir6", "dir9")
+
+
+def _launch_stage(dev, fn: str, launches: int, *args) -> None:
+    """Call ``fn`` of the kernel library with ``args`` and the current
+    stream of ``dev``; raise on a refused launch."""
+    global HYBRID_STAGE_LAUNCHES
+    from mcpt_torch.kernels import _build
+
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
+                           f"({lib.mcpt_error_string(rc).decode()})")
+    HYBRID_STAGE_LAUNCHES += launches
+
+
+def _roulette_cuda(state, rid, seed, depth: int, live_cap: float) -> None:
+    """``_roulette`` through ``csrc/hybrid_stage.cu``: the live count into
+    a device int, then one pass that selects and rescales.  Past 2²⁴ lanes
+    the count is exact where the plain float32 sum may round."""
+    dev, n = _check_pool(state, rid)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch_stage(dev, "mcpt_hybrid_roulette", 2, state.data_ptr(),
+                  rid.data_ptr(), n, _f32(live_cap), int(seed) & _M32,
+                  (1009 + depth) & _M32, count.data_ptr())
+
+
+def _hybrid_sort_key_cuda(ox, oy, oz, dx, dy, dz, alive, bb_lo, bb_inv_ext,
+                          key_mode: str = "cell"):
+    """``_hybrid_sort_key`` through ``csrc/hybrid_stage.cu``, one pass."""
+    if key_mode not in _KEY_MODES:
+        raise ValueError(f"unknown key_mode {key_mode!r}")
+    planes = (ox, oy, oz, dx, dy, dz, alive)
+    for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz", "alive"),
+                       planes):
+        mk._check_cuda(name, t)
+        if t.dim() != 1 or t.shape != ox.shape or t.device != ox.device:
+            raise ValueError(f"{name} must be 1-d, of ox's length, on "
+                             f"ox's device")
+    n = ox.numel()
+    key = torch.empty(n, dtype=torch.int32, device=ox.device)
+    _launch_stage(ox.device, "mcpt_hybrid_sort_key", 1,
+                  *(t.data_ptr() for t in planes), n,
+                  *(_f32(x) for x in bb_lo), *(_f32(x) for x in bb_inv_ext),
+                  _KEY_MODES.index(key_mode), COARSE_BITS, key.data_ptr())
+    return key
+
+
+def _reorder_cuda(state, rid, order, keep: int, segs_total):
+    """``_reorder_reference`` through ``csrc/hybrid_stage.cu``, one pass
+    that writes the kept pool into new buffers and the tail beside it; a
+    live lane in the tail sets ``segs_total`` to NaN in place."""
+    dev, n = _check_pool(state, rid)
+    if (order.device != dev or order.dtype != torch.int64
+            or tuple(order.shape) != (n,) or not order.is_contiguous()):
+        raise ValueError(f"order must be a contiguous int64 ({n},) tensor "
+                         f"on {dev}")
+    if not 0 < keep <= n:
+        raise ValueError(f"keep must be in 1..{n}, got {keep}")
+    if (segs_total.device != dev or segs_total.dtype != torch.float64
+            or segs_total.dim() != 0):
+        raise ValueError(f"segs_total must be a float64 0-d tensor on {dev}")
+    out = torch.empty((len(PLANES), keep), dtype=torch.float32, device=dev)
+    out_rid = torch.empty(keep, dtype=torch.int32, device=dev)
+    tail = None
+    if keep < n:
+        tail = (torch.empty(n - keep, dtype=torch.int32, device=dev),
+                torch.empty((3, n - keep), dtype=torch.float32, device=dev))
+    _launch_stage(dev, "mcpt_hybrid_reorder", 1, state.data_ptr(),
+                  rid.data_ptr(), order.data_ptr(), n, keep, out.data_ptr(),
+                  out_rid.data_ptr(), *((None, None) if tail is None else
+                                        (t.data_ptr() for t in tail)),
+                  segs_total.data_ptr())
+    return out, out_rid, tail, segs_total
+
+
+def _by_device(name: str, t: torch.Tensor, plain, kernel, args):
+    kind = t.device.type
+    if kind == "cpu":
+        return plain(*args)
+    if kind == "cuda":
+        return kernel(*args)
+    raise ValueError(f"{name} runs on cpu or cuda tensors, not {kind}")
+
+
+def roulette(state, rid, seed, depth: int, live_cap: float) -> None:
+    """``_roulette`` (in place): its plain version for CPU tensors, the
+    kernels for CUDA tensors (or raise)."""
+    return _by_device("roulette", state, _roulette, _roulette_cuda,
+                      (state, rid, seed, depth, live_cap))
+
+
+def sort_key(ox, oy, oz, dx, dy, dz, alive, bb_lo, bb_inv_ext,
+             key_mode: str = "cell"):
+    """``_hybrid_sort_key``: its plain version for CPU tensors, the kernel
+    for CUDA tensors (or raise)."""
+    return _by_device("sort_key", ox, _hybrid_sort_key, _hybrid_sort_key_cuda,
+                      (ox, oy, oz, dx, dy, dz, alive, bb_lo, bb_inv_ext,
+                       key_mode))
+
+
+def reorder(state, rid, order, keep: int, segs_total):
+    """``_reorder_reference``: itself for CPU tensors, the kernel for CUDA
+    tensors (or raise)."""
+    return _by_device("reorder", state, _reorder_reference, _reorder_cuda,
+                      (state, rid, order, keep, segs_total))
+
+
+class HybridStages(NamedTuple):
+    """The stages between two bounces that ``_run_hybrid`` calls."""
+
+    roulette: Callable
+    sort_key: Callable
+    reorder: Callable
+
+
+STAGES = HybridStages(roulette, sort_key, reorder)
+PLAIN_STAGES = HybridStages(_roulette, _hybrid_sort_key, _reorder_reference)
+
+
 def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
                 rr_start=3, nee=False, mis=False, clamp=0.0, t_min=1e-4,
                 compact=None, key_mode="auto", live=None, bounce=None,
-                perm=None, sample_base=0):
+                perm=None, sample_base=0, stages=STAGES):
     """The pipeline of ``_render_hybrid_jit`` as a loop over depths →
     ((W·H, 3) radiance sum in pixel order, float64 0-d segment count); with
     ``perm`` (pixel ids) the (len(perm), 3) sums of those pixels in
@@ -717,8 +876,9 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
     Each stage is a span (``mcpt.hybrid.raygen``, ``.bounce``,
     ``.roulette``, ``.sort``, ``.reduce``); ``live`` (a list) receives the
     live share of the pool after each bounce but the last (the pilot's
-    measurement); ``bounce`` replaces ``fused_bounce``
-    (``render_hybrid_reference`` passes the plain one)."""
+    measurement); ``bounce`` replaces ``fused_bounce`` and ``stages`` the
+    dispatchers between bounces (``render_hybrid_reference`` passes the
+    plain ones)."""
     bounce = fused_bounce if bounce is None else bounce
     key_mode = resolve_key_mode(key_mode, compact)
     dev = cms.wnodes.device
@@ -743,26 +903,19 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
         if shrink:
             # 97% of the next pool's lanes: the 3% Bernoulli margin
             with span("mcpt.hybrid.roulette"):
-                _roulette(state, rid, seed, d, 0.97 * rows_at[d + 1] * 128)
+                stages.roulette(state, rid, seed, d,
+                                0.97 * rows_at[d + 1] * 128)
         if d + 1 == max_depth:
             break  # the final reduce orders the lanes by id anyway
         with span("mcpt.hybrid.sort"):
-            key = _hybrid_sort_key(*state[:6], state[ALIVE], cms.bb_lo,
-                                   cms.bb_inv_ext, key_mode)
+            key = stages.sort_key(*state[:6], state[ALIVE], cms.bb_lo,
+                                  cms.bb_inv_ext, key_mode)
+            # stable: the dead lanes' DEAD_KEY ties keep their order
             order = torch.sort(key, stable=True).indices
-            if shrink:
-                # dead rays sort last, so the dropped tail is all dead; its
-                # radiance rides to the final reduce.  A live ray there (the
-                # 3% margin blown, P < 1e-200) poisons the segment count
-                # instead of silently biasing the image.
-                tail = order[rows_at[d + 1] * 128:]
-                tail_alive = state[ALIVE, tail].sum()
-                segs_total = segs_total + torch.where(
-                    tail_alive > 0.0, math.nan, 0.0).to(torch.float64)
-                tails.append((rid[tail], state[9:12, tail]))
-                order = order[:rows_at[d + 1] * 128]
-            state = state.index_select(1, order)
-            rid = rid[order]
+            state, rid, tail, segs_total = stages.reorder(
+                state, rid, order, rows_at[d + 1] * 128, segs_total)
+            if tail is not None:
+                tails.append(tail)
 
     # restore (sample, pixel) order by RNG id (pixels ascending within a
     # sample), then sum over samples
@@ -807,8 +960,11 @@ def render_hybrid(cms: ClusterMegaScene, cam: T.Camera, width: int,
 def render_hybrid_reference(cms: ClusterMegaScene, cam: T.Camera,
                             width: int, height: int, spp: int, seed, **kw):
     """``render_hybrid`` (same arguments) with every bounce through the
-    plain ``fused_bounce_reference``, on whatever device the tables are: on
-    CUDA tensors it is the whole pipeline the kernel is held against."""
+    plain ``fused_bounce_reference`` and every stage between bounces
+    through its plain version (``PLAIN_STAGES``), on whatever device the
+    tables are: on CUDA tensors it is the whole pipeline the kernels are
+    held against."""
     return _run_hybrid(cms, cam, width, height, spp, seed,
-                       bounce=fused_bounce_reference, **kw)
+                       bounce=fused_bounce_reference, stages=PLAIN_STAGES,
+                       **kw)
 

@@ -8,6 +8,7 @@ On a machine with a card:
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -255,13 +256,24 @@ def test_fused_bounce_matches_plain_version(cuda):
 
 
 def test_render_hybrid_kernel_matches_plain_pipeline(cuda):
+    """Kernel 2 and the between-bounce kernels together against the
+    all-plain pipeline (plain bounce, plain stages), bit for bit.  At 8 spp
+    the pool (8192 lanes) shrinks to 4096 after bounce 0, through the
+    roulette kernels and a tail: 2 launches a roulette and 2 a re-sort."""
     cmk, cms, cam, _, _ = _hybrid_setup(cuda)
-    for kw in (dict(key_mode="cell"),
-               dict(key_mode="dir6", compact=(0.5, 0.3, 0.3))):
-        kw = dict(kw, spp=4, seed=2, max_depth=4, nee=True, mis=True,
+    for spp, kw in ((4, dict(key_mode="cell")),
+                    (8, dict(key_mode="dir6", compact=(0.5, 0.3, 0.3)))):
+        kw = dict(kw, spp=spp, seed=2, max_depth=4, nee=True, mis=True,
                   rr=True, rr_start=1)
+        rows0 = -(-spp * 32 * 24 // cmk.BLKT) * cmk.SUBT
+        rows = cmk._compaction_schedule(rows0, 4, kw.get("compact"))
+        shrinks = sum(b < a for a, b in zip(rows, rows[1:]))
+        assert shrinks == (1 if "compact" in kw else 0)
+        before = cmk.HYBRID_STAGE_LAUNCHES
         a, sa = cmk.render_hybrid(cms, cam, 32, 24, **kw)
+        assert cmk.HYBRID_STAGE_LAUNCHES == before + 2 * shrinks + 2 * 3
         b, sb = cmk.render_hybrid_reference(cms, cam, 32, 24, **kw)
+        assert cmk.HYBRID_STAGE_LAUNCHES == before + 2 * shrinks + 2 * 3
         torch.testing.assert_close(a, b, rtol=0, atol=0)
         assert float(sa) == float(sb)
 
@@ -312,6 +324,137 @@ def test_fused_bounce_wrapper_refusals(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         cmk.fused_bounce(cms._replace(tri16=cms.tri16.cpu()), state, rid, 0,
                          0)
+
+
+# --------------------------------------------------------------------------
+# the hybrid's between-bounce kernels (csrc/hybrid_stage.cu)
+# --------------------------------------------------------------------------
+
+
+def _stage_pool(device, n=4480, dead=0.4, seed=3):
+    """A (16, n) pool of random planes, ``dead`` of its lanes dead, origins
+    partly outside boxfield-like bounds, unit directions with the axes and
+    a zero among them; rids over the whole int32 range."""
+    g = torch.Generator().manual_seed(seed)
+    state = torch.rand((16, n), generator=g) * 4.0 - 2.0
+    state[0:3] = torch.rand((3, n), generator=g) * 24.0 - 12.0
+    d = torch.randn((3, n), generator=g)
+    d = d / d.norm(dim=0)
+    d[:, :7] = torch.tensor([[1.0, -1, 0, 0, 0, 0, 0], [0, 0, 1, -1, 0, 0, 0],
+                             [0, 0, 0, 0, 1, -1, 0]])
+    state[3:6] = d
+    state[6:9] = torch.rand((3, n), generator=g) + 0.5
+    state[12] = (torch.rand(n, generator=g) >= dead).float()
+    rid = torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                        dtype=torch.int32)
+    return state.to(device), rid.to(device)
+
+
+@pytest.mark.parametrize("case", ["p<1", "p=1", "all dead"])
+def test_roulette_kernel_matches_plain_version(cuda, case):
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+
+    state, rid = _stage_pool(cuda, dead=1.0 if case == "all dead" else 0.4)
+    live = int((state[cmk.ALIVE] > 0).sum())
+    cap = {"p<1": 0.3 * live, "p=1": 2.0 * live, "all dead": 100.0}[case]
+    a, b = state.clone(), state.clone()
+    before = cmk.HYBRID_STAGE_LAUNCHES
+    cmk.roulette(a, rid, 2**33 + 5, 3, cap)
+    assert cmk.HYBRID_STAGE_LAUNCHES == before + 2
+    cmk._roulette(b, rid, 2**33 + 5, 3, cap)
+    assert torch.equal(a, b)
+    kept = int((a[cmk.ALIVE] > 0).sum())
+    if case == "p<1":
+        assert 0 < kept < live and not torch.equal(a[6:9], state[6:9])
+    else:
+        assert kept == live and torch.equal(a[6:9], state[6:9])
+
+
+@pytest.mark.parametrize("mode", ["cell", "dir", "dir6", "dir9"])
+def test_sort_key_kernel_matches_plain_version(cuda, mode):
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+
+    state, _ = _stage_pool(cuda)
+    lo, inv = (-10.0, -9.0, -8.0), (0.05, 0.06, 0.07)
+    before = cmk.HYBRID_STAGE_LAUNCHES
+    got = cmk.sort_key(*state[:6], state[cmk.ALIVE], lo, inv, mode)
+    assert cmk.HYBRID_STAGE_LAUNCHES == before + 1
+    want = cmk._hybrid_sort_key(*state[:6], state[cmk.ALIVE], lo, inv, mode)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    dead = state[cmk.ALIVE] == 0
+    assert bool((got[dead] == cmk.DEAD_KEY).all())
+
+
+@pytest.mark.parametrize("keep", [4480, 2560, 128])
+def test_reorder_kernel_matches_plain_version(cuda, keep):
+    """Most keys DEAD_KEY (ties the stable sort keeps in lane order), with
+    and without a shrink; at 128 kept lanes live ones fall in the tail and
+    both versions set the NaN canary."""
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+
+    state, rid = _stage_pool(cuda, dead=0.7)
+    lo, inv = (-10.0, -9.0, -8.0), (0.05, 0.06, 0.07)
+    key = cmk._hybrid_sort_key(*state[:6], state[cmk.ALIVE], lo, inv, "cell")
+    order = torch.sort(key, stable=True).indices
+    total = torch.full((), 12345.0, dtype=torch.float64, device=cuda)
+    before = cmk.HYBRID_STAGE_LAUNCHES
+    a = cmk.reorder(state, rid, order, keep, total.clone())
+    assert cmk.HYBRID_STAGE_LAUNCHES == before + 1
+    b = cmk._reorder_reference(state, rid, order, keep, total.clone())
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert a[0].shape == (16, keep) and a[1].shape == (keep,)
+    if keep == state.shape[1]:
+        assert a[2] is None and b[2] is None
+    else:
+        assert torch.equal(a[2][0], b[2][0]) and torch.equal(a[2][1], b[2][1])
+    live = int((state[cmk.ALIVE] > 0).sum())
+    if keep < live:
+        assert math.isnan(float(a[3])) and math.isnan(float(b[3]))
+    else:
+        assert float(a[3]) == float(b[3]) == 12345.0
+
+
+def test_hybrid_stage_wrapper_refusals(cuda):
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+
+    state, rid = _stage_pool(cuda)
+    lo, inv = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
+    with pytest.raises(ValueError, match="float32"):
+        cmk.roulette(state.double(), rid, 0, 0, 10.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        cmk.roulette(state.t().contiguous().t(), rid, 0, 0, 10.0)
+    with pytest.raises(ValueError, match="rid"):
+        cmk.roulette(state, rid.long(), 0, 0, 10.0)
+    with pytest.raises(ValueError, match="rid"):
+        cmk.roulette(state, rid.cpu(), 0, 0, 10.0)
+    with pytest.raises(ValueError, match=r"\(16, N\)"):
+        cmk.roulette(state[:15].contiguous(), rid, 0, 0, 10.0)
+    planes = list(state[:6]) + [state[cmk.ALIVE]]
+    with pytest.raises(ValueError, match="float32"):
+        cmk.sort_key(*planes[:6], planes[6].double(), lo, inv)
+    with pytest.raises(ValueError, match="CUDA"):
+        cmk.sort_key(*planes[:6], planes[6].cpu(), lo, inv)
+    with pytest.raises(ValueError, match="contiguous"):
+        cmk.sort_key(*planes[:5], state[:, 5], planes[6], lo, inv)
+    with pytest.raises(ValueError, match="length"):
+        cmk.sort_key(*planes[:6], planes[6][:128], lo, inv)
+    with pytest.raises(ValueError, match="key_mode"):
+        cmk.sort_key(*planes, lo, inv, "octant")
+    n = state.shape[1]
+    order = torch.arange(n, device=cuda)
+    total = torch.zeros((), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="order"):
+        cmk.reorder(state, rid, order.int(), n, total)
+    with pytest.raises(ValueError, match="order"):
+        cmk.reorder(state, rid, order[:-1], n, total)
+    with pytest.raises(ValueError, match="keep"):
+        cmk.reorder(state, rid, order, 0, total)
+    with pytest.raises(ValueError, match="keep"):
+        cmk.reorder(state, rid, order, n + 1, total)
+    with pytest.raises(ValueError, match="segs_total"):
+        cmk.reorder(state, rid, order, n, total.float())
+    with pytest.raises(ValueError, match="rid"):
+        cmk.reorder(state, rid[:-1], order, n, total)
 
 
 # --------------------------------------------------------------------------

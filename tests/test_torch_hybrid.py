@@ -167,6 +167,70 @@ def test_fused_bounce_passes_dead_lanes_through(boxfield60):
     assert float(segs[~dead].sum()) >= int((~dead).sum())
 
 
+def _pool(n=4096, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    state = torch.rand((16, n), generator=g) * 2.0 - 1.0
+    state[cmk.ALIVE] = (torch.rand(n, generator=g) < 0.6).float()
+    rid = torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                        dtype=torch.int32)
+    return state, rid
+
+
+def test_stage_dispatchers_take_the_plain_version_on_cpu():
+    """On CPU tensors ``roulette``, ``sort_key`` and ``reorder`` are their
+    plain versions, bit for bit, with no kernel launch; other devices
+    raise."""
+    state, rid = _pool()
+    launches = cmk.HYBRID_STAGE_LAUNCHES
+    a, b = state.clone(), state.clone()
+    cmk.roulette(a, rid, 7, 2, 1000.0)
+    cmk._roulette(b, rid, 7, 2, 1000.0)
+    assert torch.equal(a, b) and not torch.equal(a, state)
+    lo, inv = (-1.0, -1.0, -1.0), (0.5, 0.5, 0.5)
+    key = cmk.sort_key(*a[:6], a[cmk.ALIVE], lo, inv, "dir6")
+    assert torch.equal(key, cmk._hybrid_sort_key(*a[:6], a[cmk.ALIVE], lo,
+                                                 inv, "dir6"))
+    order = torch.sort(key, stable=True).indices
+    total = torch.zeros((), dtype=torch.float64)
+    got = cmk.reorder(a, rid, order, 3072, total)
+    want = cmk._reorder_reference(a, rid, order, 3072, total)
+    for x, y in zip(got[:2] + got[2] + got[3:], want[:2] + want[2]
+                    + want[3:]):
+        assert torch.equal(x, y)
+    assert cmk.HYBRID_STAGE_LAUNCHES == launches
+    meta = torch.empty((16, 128), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cmk.roulette(meta, rid[:128], 7, 2, 10.0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cmk.sort_key(*meta[:6], meta[cmk.ALIVE], lo, inv)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cmk.reorder(meta, rid[:128], order[:128], 128, total)
+
+
+@pytest.mark.parametrize("keep,canary", [(4096, False), (2560, False),
+                                         (1024, True)])
+def test_reorder_drops_the_tail_and_raises_the_canary(keep, canary):
+    """The kept prefix in sorted order, the tail's ids and radiance beside
+    it, and a NaN segment count only where a live lane fell in the tail
+    (the pool holds ~2,458 live lanes, sorted first)."""
+    state, rid = _pool()
+    key = cmk._hybrid_sort_key(*state[:6], state[cmk.ALIVE], (-1.0,) * 3,
+                               (0.5,) * 3, "cell")
+    order = torch.sort(key, stable=True).indices
+    total = torch.full((), 7.0, dtype=torch.float64)
+    st, ids, tail, segs = cmk._reorder_reference(state, rid, order, keep,
+                                                  total)
+    assert torch.equal(st, state[:, order[:keep]])
+    assert torch.equal(ids, rid[order[:keep]])
+    if keep == 4096:
+        assert tail is None
+    else:
+        assert torch.equal(tail[0], rid[order[keep:]])
+        assert torch.equal(tail[1], state[9:12, order[keep:]])
+    assert math.isnan(float(segs)) == canary
+    assert canary or float(segs) == 7.0
+
+
 def jax_render_hybrid(tmp_path, w, h, **kw):
     z = jax_child(tmp_path, _JAX_HYBRID, scene="boxfield",
                   scene_kw={"n_boxes": 60}, w=w, h=h, kw=kw)
