@@ -4,8 +4,10 @@ at the cell's own size, on the card:
 
     python3 benchmark/control.py --workload NAME --seconds S --seeds A B C …
 
-One process builds the program once and then, for each seed, runs a
-window as ``run.py`` does and reads two sets of numbers against the plain
+One process builds the program once, runs a window for each seed as
+``run.py`` does (a cell on several cards as its rank 0, with the other
+ranks started as ``run.py`` starts them), and then, with the program's
+state freed, reads two sets of numbers for each against the plain
 reference (float32) over the same samples and pixels:
 
 - ``program``: the program's framebuffer and segments (the lower readings);
@@ -69,31 +71,49 @@ def main(argv=None) -> int:
 
     import torch
 
-    from benchmark import harness
+    from benchmark import harness, ranks
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 2
-    device = torch.device("cuda", 0)
     cell = harness.load_cell(args.workload)
-    prog = harness.build(cell, device)
-    harness.warm_up(cell, prog, args.seeds[0], device)
-    n_pixels = cell.cfg["width"] * cell.cfg["height"]
-    for seed in args.seeds:
-        win = harness.window(cell, prog, seed, args.seconds, False, device)
-        pixels = harness.sample_pixels(seed, n_pixels,
-                                       int(cell.limits["pixels"]))
-        prog_rad, prog_count = harness.framebuffer_at(win.fb, pixels, device)
-        win.fb = None
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < cell.chips:
+        print(f"no CUDA device for {args.workload}", file=sys.stderr)
+        return 2
+    # a cell on several cards runs as run.py runs it: rank 0 here
+    world = (ranks.start(cell, args.seeds, args.seconds, "cuda",
+                         harness.ROOT) if cell.chips > 1 else None)
+    try:
+        device = torch.device("cuda", 0) if world is None else world.device
+        prog = harness.build(cell, device,
+                             mesh=None if world is None else world.mesh)
+        harness.warm_up(cell, prog, args.seeds[0], device)
+        n_pixels = cell.cfg["width"] * cell.cfg["height"]
+        runs = []
+        for seed in args.seeds:
+            win = harness.window(cell, prog, seed, args.seconds, False,
+                                 device,
+                                 None if world is None else world.agree)
+            pixels = harness.sample_pixels(seed, n_pixels,
+                                           int(cell.limits["pixels"]))
+            runs.append((seed, win,
+                         *harness.framebuffer_at(win.fb, pixels, device)))
+            win.fb = None
+        scene = prog.scene
+        del prog
+        if world is not None:
+            world.finish()  # the other ranks exit before the references
+    finally:
+        if world is not None:
+            world.close()
+    for seed, win, prog_rad, prog_count in runs:
         t0 = time.perf_counter()
         out = dict(seed=seed, steps=len(win.times))
-        out.update(readings(cell, prog.scene, seed, win, prog_rad,
-                            prog_count, device))
+        out.update(readings(cell, scene, seed, win, prog_rad, prog_count,
+                            device))
         out["seconds"] = time.perf_counter() - t0
         print(json.dumps(out), flush=True)
     return 0

@@ -17,6 +17,11 @@ take the window's host-clock seconds; each step's time is the period
 between timing events the loop records on the card's stream at each
 step's start, read on the card's clock (a host-clock reading is off by
 about half a millisecond, more than a small step lasts).
+
+A cell on N > 1 cards runs as N ranks, one a card (``ranks.py``): every
+rank runs the same set-up and loop over the configuration's ``mesh``, rank
+0's clock ends the window, and rank 0 alone times, traces, judges and
+reports.  A cell on one card spawns nothing and makes no group.
 """
 
 from __future__ import annotations
@@ -100,11 +105,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def build(cell, device, wrap_step=None) -> SimpleNamespace:
+def build(cell, device, wrap_step=None, mesh=None) -> SimpleNamespace:
     """The program's set-up for the cell: the benchmark's scene, then the
     engine adapter's build (scene build, pilot) → (scene, step, spans).
     ``wrap_step`` (tests) replaces the step function by
-    ``wrap_step(step)``."""
+    ``wrap_step(step)``; a ``mesh`` (a cell on several ranks) goes to the
+    adapter's build."""
     spans: dict = {}
 
     @contextlib.contextmanager
@@ -116,7 +122,8 @@ def build(cell, device, wrap_step=None) -> SimpleNamespace:
         spans[name] = time.perf_counter() - t0
 
     scene = cell.scene.build()
-    step = cell.engine.build(scene, cell.cfg, device, span)
+    step = cell.engine.build(scene, cell.cfg, device, span,
+                             **({} if mesh is None else dict(mesh=mesh)))
     if wrap_step is not None:
         step = wrap_step(step)
     return SimpleNamespace(scene=scene, step=step, spans=spans)
@@ -137,10 +144,12 @@ def warm_up(cell, prog, seed: int, device) -> None:
 
 
 def window(cell, prog, seed: int, seconds: float, traced: bool,
-           device) -> SimpleNamespace:
+           device, agree=None) -> SimpleNamespace:
     """The measured window: steps until ``seconds`` have passed, each
     rendered, accumulated into a fresh framebuffer and read back; with
-    ``traced`` the first ``trace_steps`` under the profiler."""
+    ``traced`` the first ``trace_steps`` under the profiler.  On several
+    ranks ``agree(stop)`` turns rank 0's decision to stop after a step into
+    every rank's (``step.agree``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from mcpt_torch.render.integrator import accumulate
@@ -158,6 +167,7 @@ def window(cell, prog, seed: int, seconds: float, traced: bool,
                                    ProfilerActivity.CUDA])
         prof.start()
     times, seg_counts, seeds, marks = [], [], [], []
+    agree_s = 0.0
     t_win = time.perf_counter()
     while True:
         i = len(times)
@@ -178,7 +188,13 @@ def window(cell, prog, seed: int, seconds: float, traced: bool,
             _stop(prof, device)
             t_win += time.perf_counter() - t1
             t1 = time.perf_counter()
-        if t1 - t_win >= seconds:
+        stop = t1 - t_win >= seconds
+        if agree is not None:
+            t_a = time.perf_counter()
+            with rf("step.agree"):
+                stop = agree(stop)
+            agree_s += time.perf_counter() - t_a
+        if stop:
             break
     marks.append(_mark(device))
     if prof is not None and len(times) < n_trace:
@@ -191,7 +207,8 @@ def window(cell, prog, seed: int, seconds: float, traced: bool,
         times = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
     return SimpleNamespace(fb=fb, times=times, seg_counts=seg_counts,
                            seeds=seeds, prof=prof, n_trace=n_trace,
-                           t_win=t_win, window_s=t1 - t_win, spp=spp)
+                           t_win=t_win, window_s=t1 - t_win, spp=spp,
+                           agree_s=agree_s)
 
 
 def _mark(device):
@@ -258,15 +275,18 @@ def judge(cell, scene, seed: int, win, prog_rad, prog_count,
 
 
 def run_cell(cell, seed: int, seconds: float, traced: bool, device,
-             t_start: float, wrap_step=None) -> tuple:
-    """One run → (result dict, stderr lines)."""
+             t_start: float, wrap_step=None, world=None) -> tuple:
+    """One run → (result dict, stderr lines); with ``world``
+    (``ranks.World``) as rank 0 of a cell on several ranks."""
     import torch
 
+    mesh = None if world is None else world.mesh
     t_build = time.perf_counter()
-    prog = build(cell, device, wrap_step)
+    prog = build(cell, device, wrap_step, mesh)
     t_warm = time.perf_counter()
     warm_up(cell, prog, seed, device)
-    win = window(cell, prog, seed, seconds, traced, device)
+    win = window(cell, prog, seed, seconds, traced, device,
+                 None if world is None else world.agree)
     setup_s = win.t_win - t_start
     n_steps, spp, times = len(win.times), win.spp, win.times
     peak = (torch.cuda.max_memory_allocated(device)
@@ -279,6 +299,9 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     del prog
     win.fb = None
     gc.collect()
+    if world is not None:
+        # the other ranks free their state and exit before the reference
+        peak = max([peak, *world.finish()])
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
@@ -296,8 +319,12 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
                   failed=0 if correct else n_steps)
     if traced:
         tr = trace.from_profile(win.prof)
+        segs = sum(seg_counts[:win.n_trace])
+        # rank 0's card traces its share of the mesh's segments: the ranks
+        # split every pixel's samples evenly (equal up to sampling noise)
         ctx = SimpleNamespace(trace=tr, steps=min(win.n_trace, n_steps),
-                              segs=sum(seg_counts[:win.n_trace]),
+                              segs=segs, card_segs=segs / (
+                                  1 if world is None else world.size),
                               spans=spans)
         metrics = {}
         for m in cell.layer:
@@ -327,9 +354,12 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     result["check"] = {k: dict(value=min(values[k], 1e308),
                                limit=cell.limits[k])
                        for k in check.compared(cell.limits)}
+    on_ranks = ("" if world is None else
+                f"{world.describe()}, agreement "
+                f"{win.agree_s / max(n_steps, 1) * 1e3:.4f} ms a step; ")
     fifths = "/".join(f"{np.median(q) * 1e3:.3f}"
                       for q in np.array_split(times, 5) if len(q))
-    info = [f"run {cell.name} seed {seed}: {n_steps} steps in "
+    info = [f"run {cell.name} seed {seed}: {on_ranks}{n_steps} steps in "
             f"{window_s:.3f} s, set-up {setup_s:.3f} s (start to build "
             f"{t_build - t_start:.3f} s, build {t_warm - t_build:.3f} s, "
             f"warm-up {win.t_win - t_warm:.3f} s; "
@@ -342,6 +372,21 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
             f"segments {sum(seg_counts):.0f} (a path "
             f"over the image against the sampled pixels' {segs_est:+.5f})"]
     return result, info + check.lines(values, cell.limits)
+
+
+def run_ranks(cell, seed: int, seconds: float, traced: bool,
+              device_type: str, t_start: float, root: Path = ROOT,
+              wrap_step=None) -> tuple:
+    """One run of a cell on ``cell.chips`` ranks, this process rank 0 →
+    (result dict, stderr lines)."""
+    from benchmark import ranks
+
+    world = ranks.start(cell, [seed], seconds, device_type, root)
+    try:
+        return run_cell(cell, seed, seconds, traced, world.device, t_start,
+                        wrap_step, world)
+    finally:
+        world.close()
 
 
 def end_to_end(times, seg_counts, spp: int, window_s: float,
@@ -395,9 +440,13 @@ def main(argv=None, t_start: float | None = None) -> int:
         print(f"no CUDA device for {args.workload}: it needs {cell.chips} "
               f"card(s), torch sees {seen}", file=sys.stderr)
         return 2
-    result, lines = run_cell(cell, args.seed, args.seconds,
-                             bool(args.trace), torch.device("cuda", 0),
-                             t_start)
+    if cell.chips > 1:
+        result, lines = run_ranks(cell, args.seed, args.seconds,
+                                  bool(args.trace), "cuda", t_start)
+    else:
+        result, lines = run_cell(cell, args.seed, args.seconds,
+                                 bool(args.trace), torch.device("cuda", 0),
+                                 t_start)
     bad = forbidden_modules()
     if bad:
         print(f"loaded in this process: {', '.join(bad)}", file=sys.stderr)

@@ -1,11 +1,11 @@
-"""Segments of the traced steps over the device time of the cluster
-megakernel (kernel 3), ``render_cluster_kernel``: the kernel's own rate,
-in Mrays/s. Nothing to read where the kernel does not run. Moves
-``spp_per_s``."""
+"""Segments of the traced steps on rank 0's card over the device time of
+the cluster megakernel (kernel 3), ``render_cluster_kernel``: the
+kernel's own rate, in Mrays/s. Nothing to read where the kernel does not
+run. Moves ``spp_per_s``."""
 
 from benchmark.devtrace import kernel_us
 
 
 def read(ctx):
     us = kernel_us(ctx.trace, "render_cluster_kernel")
-    return ctx.segs / us if us > 0 else None
+    return ctx.card_segs / us if us > 0 else None

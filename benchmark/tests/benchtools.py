@@ -44,5 +44,8 @@ def tiny_checkout(tmp: Path, engine: str = "mega", spp: int = 2,
                             why="test")]
     spec["workloads"] = [dict(name=name, config="tiny",
                               traffic=f"{engine}-tiny", chips=1, why="test")]
+    for m in spec["end_to_end"]:
+        if "workloads" in m:  # the tiny cell reports what one card's do
+            m["workloads"] = [name]
     (tmp / "BENCHMARK.json").write_text(json.dumps(spec))
     return tmp

@@ -40,8 +40,10 @@ def test_bench_every_cell_resolves_by_name(name):
     assert cell.cfg["name"] == next(
         w for w in _spec()["workloads"] if w["name"] == name)["config"]
     assert callable(cell.scene.build) and callable(cell.engine.build)
+    # a mesh's step tail is the slowest rank's host noise: no bound holds it
     assert {m["name"] for m in cell.e2e} == {
-        "spp_per_s", "mrays_per_s", "step_ms_p95", "setup_s"}
+        "spp_per_s", "mrays_per_s", "setup_s",
+        *(["step_ms_p95"] if cell.chips == 1 else [])}
     assert cell.layer and all(callable(r.read) for r in
                               cell.readers.values())
     assert check.compared(cell.limits)[:3] == [
@@ -116,7 +118,8 @@ def _trace():
 
 
 def _read(name, **kw):
-    ctx = SimpleNamespace(trace=_trace(), steps=2, segs=1e6, spans={})
+    ctx = SimpleNamespace(trace=_trace(), steps=2, segs=1e6, card_segs=1e6,
+                          spans={})
     for k, v in kw.items():
         setattr(ctx, k, v)
     return harness._module(BENCH / "layer_metrics" / f"{name}.py").read(ctx)

@@ -46,13 +46,14 @@ PROGRAM = [("mcpt.hybrid.raygen", 1, 8, 0.0),
 
 
 def _read(name, program=PROGRAM):
-    ctx = SimpleNamespace(trace=_trace(), steps=2, segs=1e6, spans={},
+    ctx = SimpleNamespace(trace=_trace(), steps=2, segs=1e6, card_segs=1e6,
+                          spans={},
                           program_spans=program)
     return harness._module(BENCH / "layer_metrics" / f"{name}.py").read(ctx)
 
 
 def test_bench_idle_gaps_take_the_innermost_span():
-    gaps = spans.idle_gaps(_trace(), PROGRAM)
+    gaps = devtrace.idle_gaps(_trace(), PROGRAM)
     assert sum(us for _, us in gaps) == 100 - 53
     # 0-10 falls in the raygen, 40-70 in the first readback (its middle,
     # 55, is before the second bounce), 90-92 in the reduce, 94-96 and
@@ -63,7 +64,7 @@ def test_bench_idle_gaps_take_the_innermost_span():
 
 
 def test_bench_without_program_spans_the_harness_labels_stand():
-    assert spans.idle_gaps(_trace(), []) == devtrace.idle_gaps(_trace())
+    assert devtrace.idle_gaps(_trace(), []) == devtrace.idle_gaps(_trace())
     for name in ("program_waits_per_step", "engine_idle_ms_per_step",
                  "hybrid_sort_ms_per_step"):
         assert _read(name, program=[]) is None, name
@@ -81,8 +82,8 @@ def test_bench_span_readers():
 
 def test_bench_spans_from_a_profile_of_the_port():
     """The port's spans in a CPU profile: names, nesting order and each
-    span's device time (none on the CPU); the profile is found again from
-    the harness's trace of it."""
+    span's device time (none on the CPU), read with the rest of the
+    harness's trace of it."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from mcpt_torch.trace import span
@@ -94,7 +95,7 @@ def test_bench_spans_from_a_profile_of_the_port():
                     torch.ones(4).sum()
         with record_function("step.readback"):
             pass
-    found = spans.from_profile(prof)
+    found = devtrace.from_profile(prof).program
     assert [x[0] for x in found] == ["mcpt.hybrid.bounce",
                                      "mcpt.wait.k2_flag"]
     assert found[0][1] <= found[1][1] <= found[1][2] <= found[0][2]
