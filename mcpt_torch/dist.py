@@ -39,6 +39,7 @@ back: the renders themselves stay on the card.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -48,6 +49,7 @@ import torch.distributed as dist
 from mcpt_torch import rng
 from mcpt_torch.render import camera as camera_mod
 from mcpt_torch.render import integrator as integ
+from mcpt_torch.trace import span
 from mcpt_torch.types import Framebuffer, RayPool, make_framebuffer
 
 
@@ -275,17 +277,35 @@ def render_mega_sharded(mega, cam, width: int, height: int, spp: int,
 
 def _tile_slice(mesh: Mesh, width: int, height: int, spp: int, device):
     """The shard's part of the tile order: (spp a shard, slice length, this
-    shard's true pixels (a prefix of its slice of the edge-padded tile
-    permutation, ``mcpt`` ``dist.py:294-301``), the padded permutation as
-    a numpy array)."""
+    shard's true pixels: its slice of the tile permutation, on ``device``,
+    without the edge padding of ``mcpt`` ``dist.py:294-301``)."""
     from mcpt_torch.kernels import cluster_megakernel as cmk
 
-    n = width * height
-    spp_local, local_n, base, count = _split(mesh, spp, n)
+    spp_local, local_n, base, count = _split(mesh, spp, width * height)
     perm = cmk.tile_pixels(width, height, device)[0]
-    perm_pad = np.pad(perm.cpu().numpy(), (0, mesh.shape["pixels"] * local_n
-                                           - n), mode="edge")
-    return spp_local, local_n, perm[base:base + count], perm_pad
+    return spp_local, local_n, perm[base:base + count]
+
+
+@functools.lru_cache(maxsize=4)
+def _shard_rows(width: int, height: int, pixels: int, device: torch.device):
+    """The gathered rows of the sharded hybrid in pixel order, computed on
+    ``device`` once per (width, height, ``pixels`` extent, device) → int64
+    ``inv`` with ``out[inv]`` the (W·H, 3) image.  Slice i of the tile
+    permutation leaves its true pixels in ascending order at rows
+    ``i·local_n + j``; its padding rows (a short or empty last slice) are
+    never picked.  Nobody writes to it, as with ``tile_pixels``."""
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+
+    with span("mcpt.dist.shard_rows"):
+        n = width * height
+        local_n = _pad_to(n, pixels) // pixels
+        perm = cmk.tile_pixels(width, height, device)[0]
+        inv = torch.empty(n, dtype=torch.int64, device=device)
+        for lo in range(0, n, local_n):
+            hi = min(lo + local_n, n)
+            inv[torch.sort(perm[lo:hi]).values] = torch.arange(
+                lo, hi, dtype=torch.int64, device=device)
+        return inv
 
 
 def _pad_rows(rad: torch.Tensor, local_n: int) -> torch.Tensor:
@@ -307,7 +327,7 @@ def render_cluster_sharded(cms, cam, width: int, height: int, spp: int,
     from mcpt_torch.kernels import cluster_megakernel as cmk
 
     dev = cms.wnodes.device
-    spp_local, local_n, mine, _ = _tile_slice(mesh, width, height, spp, dev)
+    spp_local, local_n, mine = _tile_slice(mesh, width, height, spp, dev)
     segs = torch.zeros((), dtype=torch.float64, device=dev)
     rad = torch.zeros((0, 3), dtype=torch.float32, device=dev)
     if mine.numel():
@@ -315,10 +335,11 @@ def render_cluster_sharded(cms, cam, width: int, height: int, spp: int,
             cms, cam, width, height, spp_local, seed, max_depth=max_depth,
             rr=rr, rr_start=rr_start, nee=nee, mis=mis, clamp=clamp,
             schedule="batch", pix=mine, sample_base=mesh.si * spp_local)
-    out, segs = mesh.combine(_pad_rows(rad, local_n), segs)
-    # rows follow the tile order; rows past W·H are the padding
-    _, inv, _ = cmk.tile_pixels(width, height, dev)
-    return out[inv], segs
+    with span("mcpt.dist.combine"):
+        out, segs = mesh.combine(_pad_rows(rad, local_n), segs)
+        # rows follow the tile order; rows past W·H are the padding
+        _, inv, _ = cmk.tile_pixels(width, height, dev)
+        return out[inv], segs
 
 
 def render_hybrid_sharded(cms, cam, width: int, height: int, spp: int,
@@ -338,8 +359,7 @@ def render_hybrid_sharded(cms, cam, width: int, height: int, spp: int,
     from mcpt_torch.kernels import cluster_megakernel as cmk
 
     dev = cms.wnodes.device
-    spp_local, local_n, mine, perm_pad = _tile_slice(mesh, width, height,
-                                                     spp, dev)
+    spp_local, local_n, mine = _tile_slice(mesh, width, height, spp, dev)
     segs = torch.zeros((), dtype=torch.float64, device=dev)
     rad = torch.zeros((0, 3), dtype=torch.float32, device=dev)
     if mine.numel():
@@ -348,15 +368,7 @@ def render_hybrid_sharded(cms, cam, width: int, height: int, spp: int,
             rr=rr, rr_start=rr_start, nee=nee, mis=mis, clamp=clamp,
             compact=compact, key_mode=key_mode, perm=mine,
             sample_base=mesh.si * spp_local)
-    out, segs = mesh.combine(_pad_rows(rad, local_n), segs)
-    # global row → pixel: each slice's true pixels in ascending order, then
-    # its padding rows (-1)
-    n = width * height
-    order = np.full(perm_pad.shape[0], -1, np.int64)
-    for i in range(mesh.shape["pixels"]):
-        part = perm_pad[i * local_n:min((i + 1) * local_n, n)]
-        order[i * local_n:i * local_n + part.shape[0]] = np.sort(part)
-    inv = np.empty(n, np.int64)
-    real = np.nonzero(order >= 0)[0]
-    inv[order[real]] = real
-    return out[torch.from_numpy(inv).to(dev)], segs
+    with span("mcpt.dist.combine"):
+        out, segs = mesh.combine(_pad_rows(rad, local_n), segs)
+        inv = _shard_rows(width, height, mesh.shape["pixels"], dev)
+        return out[inv], segs

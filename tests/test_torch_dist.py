@@ -19,6 +19,7 @@ case; each rank saves what it got, and the tests read it:
   devices without FMA (``test_torch_megakernel.jax_child``), under the
   dense path's gate (≥ 99% of pixels within 1e-4·|b| + 1e-5, means within
   1e-3, segments within 0.1%);
+- the sharded hybrid builds its row order once per ``pixels`` extent;
 - the hybrid with compaction is finite; ``render_sharded`` accumulates the
   rounded spp and agrees with one device in expectation;
 - ``render_cli`` on a ``mesh`` config under ``torchrun`` with 2 ranks equals
@@ -118,6 +119,7 @@ for tag, (s, p, ranks) in a["meshes"].items():
         rad, segs = fn(a["engine_kw"][engine])
         out[f"{engine}/{tag}"] = rad.numpy()
         out[f"{engine}/{tag}/segs"] = float(segs)
+    out["rows_misses/" + tag] = dist._shard_rows.cache_info().misses
     if tag in a["wavefront_meshes"]:
         rad, segs = dist.render_batch_sharded(
             ql, ql_lights, ql_cam, w, h, rng.key(wf["seed"]), ql_opts,
@@ -285,6 +287,21 @@ def test_mesh_shape_invariance(world, engine):
     for tag in MESHES:
         np.testing.assert_allclose(ranks[0][f"{engine}/{tag}"], first,
                                    rtol=1e-5, atol=1e-6, err_msg=tag)
+
+
+def test_hybrid_row_order_built_once_per_pixels_extent(world):
+    """After each mesh's engine runs, a member rank has built the sharded
+    hybrid's row order once for every distinct ``pixels`` extent it has
+    rendered, and never again for an extent it had."""
+    ranks, _ = world
+    for r in range(8):
+        seen = set()
+        for tag, (_, p, members) in MESHES.items():
+            if members is not None and r not in members:
+                continue
+            seen.add(p)
+            assert int(ranks[r]["rows_misses/" + tag]) == len(seen), \
+                f"{tag} rank {r}"
 
 
 def test_furnace_exact_through_sharded_wavefront(world):
