@@ -124,6 +124,18 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
+# each kernel's C symbol: its key in the launch counts
+# (mcpt_torch.kernels._build.LAUNCHES)
+K1, K2, K3, K4, K5, TF = ("mcpt_render_mega", "mcpt_fused_bounce",
+                          "mcpt_render_cluster", "mcpt_traverse",
+                          "mcpt_fma_chain", "mcpt_threefry")
+KERNELS = {"kernel 1": K1, "kernel 2": K2, "kernel 3": K3, "kernel 4": K4,
+           "kernel 5": K5, "threefry": TF}
+# the hybrid's between-bounce kernels: one call a roulette (the live count
+# and the selection), one a key pass, one a reorder
+ROULETTE, SORT_KEY, REORDER = ("mcpt_hybrid_roulette", "mcpt_hybrid_sort_key",
+                               "mcpt_hybrid_reorder")
+
 # kernel vs plain version: a pixel agrees when |a - b| <= 1e-4·|b| + 1e-5 in
 # every channel; the gates are the share of such pixels, the relative
 # difference of the image means and the ratio of the segment counts
@@ -277,6 +289,7 @@ def run() -> dict:
     from mcpt_torch.kernels import megakernel as mk
 
     dev = torch.device("cuda")
+    launched = _build.LAUNCHES
     report = {}
 
     phase(1, "device")
@@ -352,7 +365,7 @@ def run() -> dict:
     phase(5, "main path: mcpt_torch.render_cli")
     runs = [(0, ["--spp", "64"], 4), (6, ["--spp", "64"], 1),
             (2, ["--spp", "16"], 16)]
-    mk.LAUNCHES = 0
+    launched[K1] = 0
     steps = 0
     main_path = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -383,7 +396,7 @@ def run() -> dict:
                   f"spp/s, wall {wall:.2f} s, image mean {img.mean():.4f}")
             if not np.isfinite(img).all():
                 raise AssertionError(f"{stem}: non-finite pixels")
-    launches = mk.LAUNCHES
+    launches = launched[K1]
     print(f"kernel launches in the main path: {launches} "
           f"(render steps: {steps})")
     if launches != steps:
@@ -397,7 +410,7 @@ def run() -> dict:
 
     phase(6, "main-path steps (configs 0 and 6): kernel vs plain version, "
              "and time per step")
-    saved = mk.LAUNCHES
+    saved = launched[K1]
     # (configid, kernel reps, plain reps) per timed pass; the order is plain,
     # kernel, kernel, plain, and the last kernel and plain results (same
     # arguments, so the same seed) go through phase 3's gates
@@ -443,7 +456,7 @@ def run() -> dict:
         if cid == 0:  # the default config's step is the reported time
             report["ms"], report["plain_ms"] = ms, plain_ms
             report["bound_ms"], report["bound_by"] = b_ms, b_by
-    mk.LAUNCHES = saved  # comparison launches are not main-path launches
+    launched[K1] = saved  # comparison launches are not main-path launches
     report["max_abs_err"] = max_abs
     report["card"] = card
     report["hybrid"] = run_hybrid(card)
@@ -498,6 +511,7 @@ def run_hybrid(card) -> dict:
     from mcpt_torch.kernels import megakernel as mk
 
     dev = torch.device("cuda")
+    launched = _build.LAUNCHES
     out = {}
     lib = _build.load()
 
@@ -555,7 +569,8 @@ def run_hybrid(card) -> dict:
     phase(10, "main path: mcpt_torch.render_cli on configs 7, 8 and 9")
     runs = [(7, ["--spp", "16"], 4), (8, ["--spp", "16"], 4),
             (9, ["--spp", "4"], 1)]
-    cmk.LAUNCHES = mk.LAUNCHES = cmk.HYBRID_STAGE_LAUNCHES = 0
+    for sym in (K1, K2, ROULETTE, SORT_KEY, REORDER):
+        launched[sym] = 0
     expected = 0
     main_path = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -594,19 +609,20 @@ def run_hybrid(card) -> dict:
                 raise AssertionError(f"{stem}: non-finite or black image")
             if "nan" in text.lower() or "inf " in text.lower():
                 raise AssertionError(f"{stem}: non-finite segment count")
-    launches = cmk.LAUNCHES
+    launches = launched[K2]
     print(f"fused-bounce launches in the main path: {launches} (8 bounces × "
           f"(render steps + one pilot render) = {expected}); dense-kernel "
-          f"launches: {mk.LAUNCHES}")
-    if launches != expected or mk.LAUNCHES != 0:
+          f"launches: {launched[K1]}")
+    if launches != expected or launched[K1] != 0:
         raise AssertionError("the CLI did not run every bounce through the "
                              "fused-bounce kernel")
     # a re-sort after every bounce but a render's last: a key and a reorder
-    # launch each; a roulette where the pool shrinks: 2 more
-    stage, sorts = cmk.HYBRID_STAGE_LAUNCHES, expected // 8 * 7
-    print(f"between-bounce kernel launches: {stage} ({sorts} re-sorts × 2 "
-          f"+ {(stage - 2 * sorts) // 2} roulettes × 2)")
-    if stage < 2 * sorts or stage % 2:
+    # launch each; a roulette launch where the pool shrinks
+    sorts = expected // 8 * 7
+    print(f"between-bounce kernel launches: {launched[SORT_KEY]} key passes "
+          f"and {launched[REORDER]} reorders ({sorts} re-sorts), "
+          f"{launched[ROULETTE]} roulettes")
+    if not launched[SORT_KEY] == launched[REORDER] == sorts:
         raise AssertionError("the CLI did not run every re-sort through the "
                              "between-bounce kernels")
     out["launches"] = launches
@@ -614,7 +630,7 @@ def run_hybrid(card) -> dict:
 
     phase(11, "one bounce at config 8's own pool: kernel vs plain version, "
               "timed (CUDA events)")
-    saved = cmk.LAUNCHES
+    saved = launched[K2]
     cms, cam, w, h, kw = config_hybrid_step(8, dev)
     print(walk_report(cms, "fused_bounce_kernel",
                       lib.mcpt_fused_bounce_blocks_per_sm(
@@ -679,7 +695,7 @@ def run_hybrid(card) -> dict:
                                    cms.bb_inv_ext, key_mode)
         order = torch.sort(key, stable=True).indices
         state, rid = a.index_select(1, order), rid[order]
-    cmk.LAUNCHES = saved  # comparison launches are not main-path launches
+    launched[K2] = saved  # comparison launches are not main-path launches
     out["ms"], out["plain_ms"], out["bound_ms"], out["bound_by"] = times[0]
     out["max_abs_err"] = max_abs
     return out
@@ -696,13 +712,14 @@ def hybrid_stage_report(cms, state, rid, seed, key_mode, card,
     1), the reorder keeps all of it and then half."""
     import torch
 
+    from mcpt_torch.kernels import _build
     from mcpt_torch.kernels import cluster_megakernel as cmk
 
     n = state.shape[1]
     live = int((state[cmk.ALIVE] > 0).sum())
     cap = 0.97 * (n // 2)
     box = (cms.bb_lo, cms.bb_inv_ext, key_mode)
-    saved = cmk.HYBRID_STAGE_LAUNCHES
+    saved = {k: _build.LAUNCHES[k] for k in (ROULETTE, SORT_KEY, REORDER)}
     rows = {}
 
     def row(name, kernel, plain, same, moved):
@@ -750,7 +767,8 @@ def hybrid_stage_report(cms, state, rid, seed, key_mode, card,
             lambda: cmk.reorder(state, rid, order, keep, total),
             lambda: cmk._reorder_reference(state, rid, order, keep, total),
             same, 8 * n + 68 * keep * 2 + 20 * tail + 16 * tail)
-    cmk.HYBRID_STAGE_LAUNCHES = saved  # not main-path launches
+    for k, v in saved.items():  # not main-path launches
+        _build.LAUNCHES[k] = v
     return rows
 
 
@@ -906,6 +924,7 @@ def run_slice3(card) -> dict:
     from mcpt_torch.render import traverse
 
     dev = torch.device("cuda")
+    launched = _build.LAUNCHES
     out = {}
 
     t_phase = time.perf_counter()
@@ -959,7 +978,7 @@ def run_slice3(card) -> dict:
                       lib.mcpt_render_cluster_blocks_per_sm(
                           stack_entries(cms.wide_depth), cms.matt.shape[0],
                           cms.lit.shape[0]), threads=256))
-    saved = cmk.CLUSTER_MEGA_LAUNCHES
+    saved = launched[K3]
     cmk.render_cluster_mega(cms, cam, w, h, **kw3)  # warm-up
     kern_a, (a, sa) = cuda_ms(lambda: cmk.render_cluster_mega(cms, cam, w, h,
                                                               **kw3), 3)
@@ -969,7 +988,7 @@ def run_slice3(card) -> dict:
     work = dict(cmk.WALK_WORK)
     kern_b, _ = cuda_ms(lambda: cmk.render_cluster_mega(cms, cam, w, h,
                                                         **kw3), 3)
-    cmk.CLUSTER_MEGA_LAUNCHES = saved  # comparison launches
+    launched[K3] = saved  # comparison launches
     max_abs3 = max(max_abs3, check_parity(
         f"config 7 {w}x{h} {kw3['spp']} spp (regen)", a.cpu().numpy(),
         float(sa), b.cpu().numpy(), float(sb), w * h))
@@ -991,7 +1010,7 @@ def run_slice3(card) -> dict:
     t_phase = time.perf_counter()
     phase(14, "kernel 4 vs its plain version at config 8's own pools "
               "(primary and depth-1 rays of its first step), timed")
-    saved = tk.LAUNCHES
+    saved = launched[K4]
     cl, rays = wavefront_pools(dev)
     n_rays = rays[0][1].shape[0]
     for any_hit in (0, 1):
@@ -1058,15 +1077,15 @@ def run_slice3(card) -> dict:
                                      f"version (depth {depth}, {what})")
             k4[(depth, any_hit)] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                                         bound_by=b_by)
-    tk.LAUNCHES = saved  # comparison launches
+    launched[K4] = saved  # comparison launches
     out["k4"] = dict(k4[(0, False)], max_abs_err=max_abs4)
     del rays
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
     t_phase = time.perf_counter()
     phase(15, "oracles on the new engines")
-    saved = (cmk.CLUSTER_MEGA_LAUNCHES, tk.LAUNCHES, cmk.LAUNCHES,
-             mk.LAUNCHES, rng.LAUNCHES)
+    saved = (launched[K3], launched[K4], launched[K2],
+             launched[K1], launched[TF])
     scene, lights, cms, cam = hybrid_setup("boxfield", 64, 48, dev,
                                            n_boxes=60)
     args = dict(spp=4, seed=21, max_depth=6, rr=True, rr_start=2, nee=True,
@@ -1086,18 +1105,18 @@ def run_slice3(card) -> dict:
     wopts = integ.RenderOptions(max_depth=4, nee=True, mis=True,
                                 russian_roulette=True, rr_start_depth=1,
                                 resort=True)
-    before = (tk.LAUNCHES, rng.LAUNCHES)
+    before = (launched[K4], launched[TF])
     a, sa = integ.render_batch(scene, lights, cam, 64, 36, rng.key(5), wopts,
                                spp=2, with_stats=True)
-    through = (tk.LAUNCHES - before[0], rng.LAUNCHES - before[1])
-    with tk.plain_version_on_cuda(), rng.plain_version_on_cuda():
+    through = (launched[K4] - before[0], launched[TF] - before[1])
+    with _build.plain_versions():
         b, sb = integ.render_batch(scene, lights, cam, 64, 36, rng.key(5),
                                    wopts, spp=2, with_stats=True)
-    plain = (tk.LAUNCHES - before[0] - through[0],
-             rng.LAUNCHES - before[1] - through[1])
+    plain = (launched[K4] - before[0] - through[0],
+             launched[TF] - before[1] - through[1])
     print(f"diningroom 64x36 wavefront: kernel 4 and threefry launches "
-          f"{through} through the kernels, {plain} under both plain "
-          "contexts")
+          f"{through} through the kernels, {plain} under "
+          "_build.plain_versions()")
     # 4 bounces x (closest hit + shadow rays); 2 camera draws, then 4 x
     # (shade + NEE) draws
     if through != (2 * 4, 2 + 2 * 4) or plain != (0, 0):
@@ -1138,8 +1157,8 @@ def run_slice3(card) -> dict:
               f"rel-RMSE {err:.4f} (gate 0.35)")
         if not err < 0.35:
             raise AssertionError(f"golden gate diningroom ({label}): {err}")
-    (cmk.CLUSTER_MEGA_LAUNCHES, tk.LAUNCHES, cmk.LAUNCHES, mk.LAUNCHES,
-     rng.LAUNCHES) = saved  # oracle launches are not main-path launches
+    (launched[K3], launched[K4], launched[K2], launched[K1],
+     launched[TF]) = saved  # oracle launches are not main-path launches
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
     t_phase = time.perf_counter()
@@ -1155,18 +1174,18 @@ def run_slice3(card) -> dict:
                     os.path.join(tmp, f"config{cid}_{engine}.json"),
                     engine=engine)
                 buf = io.StringIO()
-                cmk.CLUSTER_MEGA_LAUNCHES = tk.LAUNCHES = 0
-                cmk.LAUNCHES = mk.LAUNCHES = rng.LAUNCHES = 0
+                launched[K3] = launched[K4] = 0
+                launched[K2] = launched[K1] = launched[TF] = 0
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(buf):
                     rc = render_cli.main(["--config", cfg_path, "--configid",
                                           "0", "--out", tmp, "--device",
                                           "cuda", "--spp", "16"])
                 wall = time.perf_counter() - t0
-                got = {"cluster-mega": cmk.CLUSTER_MEGA_LAUNCHES,
-                       "wavefront": tk.LAUNCHES}
-                draws = rng.LAUNCHES
-                others = cmk.LAUNCHES + mk.LAUNCHES + got[
+                got = {"cluster-mega": launched[K3],
+                       "wavefront": launched[K4]}
+                draws = launched[TF]
+                others = launched[K2] + launched[K1] + got[
                     "wavefront" if engine == "cluster-mega"
                     else "cluster-mega"]
                 text = buf.getvalue()
@@ -1285,13 +1304,12 @@ def run_slice4(card) -> dict:
     from mcpt_torch.config import load_config, write_config_variant
     from mcpt_torch.io import image as im
     from mcpt_torch.kernels import _build
-    from mcpt_torch.kernels import cluster_megakernel as cmk
     from mcpt_torch.kernels import fma_peak as fp
-    from mcpt_torch.kernels import megakernel as mk
     from mcpt_torch.render import camera as camera_mod
     from mcpt_torch.types import BVH
 
     dev = torch.device("cuda")
+    launched = _build.LAUNCHES
     out = {}
 
     t_phase = time.perf_counter()
@@ -1360,9 +1378,9 @@ def run_slice4(card) -> dict:
         # a sustained window of ~4 s under the sampler, then the probe
         reps = 1000
         sustained, _ = cuda_ms(lambda: fp.fma_chain(x), reps)
-        fp.LAUNCHES = 0
+        launched[K5] = 0
         rate = runtime.measure_fp32_peak()
-        launches5 = fp.LAUNCHES
+        launches5 = launched[K5]
     finally:
         samples = stop_sampler(sampler)
     print(f"  nvidia-smi before (name, power limit, SM clock, power draw): "
@@ -1493,14 +1511,14 @@ def run_slice4(card) -> dict:
                                         os.path.join(tmp, "c7_treelet.json"),
                                         bvhtype="treeletGPU")
         buf = io.StringIO()
-        cmk.LAUNCHES = mk.LAUNCHES = 0
+        launched[K2] = launched[K1] = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = render_cli.main(["--config", cfg_path, "--configid", "0",
                                   "--out", tmp, "--device", "cuda", "--spp",
                                   "4"])
         wall = time.perf_counter() - t0
-        launches2, launches1 = cmk.LAUNCHES, mk.LAUNCHES
+        launches2, launches1 = launched[K2], launched[K1]
         text = buf.getvalue()
         print(text.strip())
         stem = re.search(r"wrote (\S+)\.hdr", text).group(1)
@@ -1560,6 +1578,7 @@ def run_threefry(card) -> dict:
     from mcpt_torch.kernels import _build
 
     dev = torch.device("cuda")
+    launched = _build.LAUNCHES
     t_phase = time.perf_counter()
     phase(20, "the threefry kernel vs its plain version at config 8's own "
               "draws (bit for bit), timed, with its bound")
@@ -1567,7 +1586,7 @@ def run_threefry(card) -> dict:
                          ops=("IADD3", "LOP3", "SHF", "IMAD", "FADD"))
     for name, c in (counts or {}).items():
         print(f"threefry SASS {name}: {c}")
-    saved = rng.LAUNCHES
+    saved = launched[TF]
     tf = {}
 
     def same(a, b):
@@ -1578,7 +1597,7 @@ def run_threefry(card) -> dict:
     for label, k, shape in threefry_draws(8):
         rng.uniform(k, shape, dev)  # warm-up
         kern_a, a = cuda_ms(lambda: rng.uniform(k, shape, dev), 20)
-        with rng.plain_version_on_cuda():
+        with _build.plain_versions():
             plain, b = cuda_ms(lambda: rng.uniform(k, shape, dev), 3)
         kern_b, _ = cuda_ms(lambda: rng.uniform(k, shape, dev), 20)
         ms = (kern_a + kern_b) / 2
@@ -1598,14 +1617,14 @@ def run_threefry(card) -> dict:
     for shape in (big, (0,), (1,), (1027,), (1027, 3)):
         for fn in (rng.uniform, rng.bits):
             a = fn(k, shape, dev)
-            with rng.plain_version_on_cuda():
+            with _build.plain_versions():
                 b = fn(k, shape, dev)
             if not same(a, b):
                 raise AssertionError(f"threefry {fn.__name__}{shape} "
                                      "disagrees with the plain version")
     print(f"  config 9's shade draw {big}, (0,), (1,), (1027,), (1027, 3): "
           "uniform and bits equal to the plain version")
-    rng.LAUNCHES = saved  # comparison launches
+    launched[TF] = saved  # comparison launches
     # the reported row: the shade draw, the largest of a bounce
     shade = next(v for key, v in tf.items() if key.startswith("shade"))
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
@@ -2185,26 +2204,13 @@ CONFIG9_RANKS = 8  # config 9's own mesh, {"samples": 8}
 
 def kernel_counts() -> dict:
     """Every kernel's launch count (kernels 1-5 and threefry)."""
-    from mcpt_torch import rng
-    from mcpt_torch.kernels import cluster_megakernel as cmk
-    from mcpt_torch.kernels import fma_peak
-    from mcpt_torch.kernels import megakernel as mk
-    from mcpt_torch.kernels import traverse_kernel as tk
+    from mcpt_torch.kernels import _build
 
-    return {"kernel 1": mk.LAUNCHES, "kernel 2": cmk.LAUNCHES,
-            "kernel 3": cmk.CLUSTER_MEGA_LAUNCHES, "kernel 4": tk.LAUNCHES,
-            "kernel 5": fma_peak.LAUNCHES, "threefry": rng.LAUNCHES}
+    return {name: _build.LAUNCHES[sym] for name, sym in KERNELS.items()}
 
 
 def zero_counts() -> None:
-    from mcpt_torch import rng
-    from mcpt_torch.kernels import cluster_megakernel as cmk
-    from mcpt_torch.kernels import fma_peak
-    from mcpt_torch.kernels import megakernel as mk
-    from mcpt_torch.kernels import traverse_kernel as tk
-
-    mk.LAUNCHES = cmk.LAUNCHES = cmk.CLUSTER_MEGA_LAUNCHES = 0
-    tk.LAUNCHES = fma_peak.LAUNCHES = rng.LAUNCHES = 0
+    restore_counts(dict.fromkeys(KERNELS, 0))
 
 
 def expect_counts(label, got: dict, want: dict, free=()) -> None:
@@ -2287,16 +2293,10 @@ def run_tools(card) -> dict:
 
 
 def restore_counts(counts: dict) -> None:
-    from mcpt_torch import rng
-    from mcpt_torch.kernels import cluster_megakernel as cmk
-    from mcpt_torch.kernels import fma_peak
-    from mcpt_torch.kernels import megakernel as mk
-    from mcpt_torch.kernels import traverse_kernel as tk
+    from mcpt_torch.kernels import _build
 
-    mk.LAUNCHES, cmk.LAUNCHES = counts["kernel 1"], counts["kernel 2"]
-    cmk.CLUSTER_MEGA_LAUNCHES, tk.LAUNCHES = (counts["kernel 3"],
-                                              counts["kernel 4"])
-    fma_peak.LAUNCHES, rng.LAUNCHES = counts["kernel 5"], counts["threefry"]
+    for name, sym in KERNELS.items():
+        _build.LAUNCHES[sym] = counts[name]
 
 
 def time_collectives() -> dict:

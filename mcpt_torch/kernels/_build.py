@@ -9,10 +9,18 @@ parallel, one compiler process each, and are then linked.  They have a plain
 C interface and include no PyTorch header: a build takes seconds.  ``nvcc``
 comes from ``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda/bin``; ``g++``
 from ``$CXX`` or ``PATH``.  A failed build raises: nothing falls back.
+
+It is also the one seam between the kernels' Python side and the library:
+``use_kernel`` is every dispatcher's device rule, ``plain_versions`` runs
+the plain versions on CUDA tensors, ``check_cuda`` is the wrappers' common
+tensor check, and ``launch`` calls a kernel's C entry point on the current
+stream, raises on its error code and counts it in ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -22,6 +30,8 @@ import subprocess
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -187,3 +197,63 @@ def load(flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
     lib.mcpt_error_string.argtypes = [i32]
     lib.mcpt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# successful calls of each kernel entry point, by C symbol (never a plain
+# version's call): how the tests and chip_smoke.py show that a path ran the
+# kernels
+LAUNCHES: collections.Counter = collections.Counter()
+# inside plain_versions(): CUDA tensors take the plain versions
+_PLAIN = False
+
+
+def use_kernel(name: str, where) -> bool:
+    """The device rule of every dispatcher ``name``, for ``where`` (a tensor
+    or a device): False (the plain version) on the CPU, True (the kernel) on
+    CUDA, False on CUDA inside ``plain_versions()``; any other device
+    raises.  Nothing falls back."""
+    kind = (where.device if isinstance(where, torch.Tensor)
+            else torch.device(where)).type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not {kind}")
+    return kind == "cuda" and not _PLAIN
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside this block every dispatcher runs its plain version on CUDA
+    tensors too: how a whole render is held against its plain version on
+    the card (``cluster_megakernel.render_hybrid_reference``)."""
+    global _PLAIN
+    saved, _PLAIN = _PLAIN, True
+    try:
+        yield
+    finally:
+        _PLAIN = saved
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(symbol: str, device, *args, lib: ctypes.CDLL | None = None):
+    """Call the library's ``symbol`` (from ``lib``, default ``load()``)
+    with ``args`` and the current stream of ``device``, on that device
+    (the C side launches on the calling thread's current device); raise on
+    a nonzero return and count the call in ``LAUNCHES``.  It neither
+    synchronises nor reads anything back."""
+    if lib is None:
+        lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, symbol)(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} "
+                           f"({lib.mcpt_error_string(rc).decode()})")
+    LAUNCHES[symbol] += 1

@@ -16,9 +16,10 @@ of every pixel as a flat pool of rays, one lane per (sample, pixel), and runs
   stack per ray;
 - ``fused_bounce_reference``: the plain fused bounce — the walk plugged into
   the dense path's estimator (``megakernel._bounce``);
-- ``fused_bounce``: the dispatcher — the plain version for CPU tensors, the
-  hand-written CUDA kernel (``mcpt_torch/csrc/fused_bounce.cu``) for CUDA
-  tensors, and an exception for anything else.  Nothing falls back;
+- ``fused_bounce``: the dispatcher (``_build.use_kernel``) — the plain
+  version for CPU tensors, the hand-written CUDA kernel
+  (``mcpt_torch/csrc/fused_bounce.cu``) for CUDA tensors, and an exception
+  for anything else.  Nothing falls back;
 - ``render_cluster_mega`` (``engine=cluster-mega``; ``_render_cluster_jit``
   at :360 in ``mcpt``, ``pallas_call`` at :418): whole paths per lane, the
   dense megakernel's body with the cluster walk plugged in, pixels in tile
@@ -44,10 +45,8 @@ two equal t, so the two can differ only on exact ties across clusters.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
-from collections.abc import Callable
 from typing import NamedTuple
 
 import numpy as np
@@ -56,6 +55,7 @@ import torch
 from mcpt_torch import types as T
 from mcpt_torch.bvh.cluster import STACK_CAP, stack_entries
 from mcpt_torch.bvh.lbvh import morton30, one_thread
+from mcpt_torch.kernels import _build
 from mcpt_torch.kernels import megakernel as mk
 from mcpt_torch.trace import span
 
@@ -71,15 +71,6 @@ _M32 = 0xFFFFFFFF
 # plain version: lanes bounced per pass (bounds its memory at the full pool)
 _LANE_CHUNK = 1 << 18
 
-# kernel launches made by ``fused_bounce`` (kernel 2) and by
-# ``render_cluster_mega`` (kernel 3) on CUDA tensors (never the plain
-# versions' calls) — read by chip_smoke.py to show the main path used them
-LAUNCHES = 0
-CLUSTER_MEGA_LAUNCHES = 0
-# launches of the between-bounce kernels (csrc/hybrid_stage.cu) made by
-# ``roulette`` (2: the live count, the selection), ``sort_key`` (1) and
-# ``reorder`` (1) on CUDA tensors
-HYBRID_STAGE_LAUNCHES = 0
 # work done by ``walk_reference``: child boxes slab-tested (8 per internal
 # pop) and triangle rows Wald-tested (a leaf's live rows; an any-hit walk
 # stops at its first hit, as the CUDA walk does) — the counts behind
@@ -298,12 +289,7 @@ def _check_walk_tables(tables, dev) -> int:
     for name, dtype in (("wnodes", torch.float32), ("tri16", torch.float32),
                         ("live", torch.int32)):
         t = getattr(tables, name)
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _build.check_cuda(name, t, dtype)
         if t.device != dev:
             raise ValueError(f"tables on {t.device}, the rest on {dev}")
     if (tables.wnodes.dim() != 2 or tables.wnodes.shape[1] != 64
@@ -366,7 +352,7 @@ def _check_pool(state, rid) -> tuple:
     """The checks of a kernel's wrapper on the pool it is handed: a
     contiguous float32 (16, N) CUDA ``state`` and a contiguous int32 (N,)
     ``rid`` on its device → (device, N)."""
-    mk._check_cuda("state", state)
+    _build.check_cuda("state", state)
     dev = state.device
     if state.dim() != 2 or state.shape[0] != len(PLANES):
         raise ValueError(f"state must be ({len(PLANES)}, N), got "
@@ -384,11 +370,8 @@ def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
     """Launch ``mcpt_torch/csrc/fused_bounce.cu`` on the current stream; it
     updates ``state`` in place.  Raises on a refused launch and on the
     kernel's stack-overflow flag (read back, so this call synchronises)."""
-    global LAUNCHES
-    from mcpt_torch.kernels import _build
-
     for name in ("matt", "lit"):
-        mk._check_cuda(f"cms.{name}", getattr(cms, name))
+        _build.check_cuda(f"cms.{name}", getattr(cms, name))
     dev, n = _check_pool(state, rid)
     cap = _check_walk_tables(cms, dev)
     for t in (cms.matt, cms.lit):
@@ -397,22 +380,14 @@ def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
     segs = torch.empty(n, dtype=torch.float32, device=dev)
     # [0] the stack-overflow flag, [1] the next ray to hand out
     err = torch.zeros(2, dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mcpt_fused_bounce(
-            cms.wnodes.data_ptr(), cms.tri16.data_ptr(), cms.live.data_ptr(),
-            cms.matt.data_ptr(), cms.lit.data_ptr(), cms.wnodes.shape[0],
-            cms.leaf_size, cap, cms.n_lights, _f32(cms.eps), _f32(t_min),
-            _f32(cms.total_light_area), _f32(clamp), int(seed) & _M32,
-            int(depth), int(max_depth), int(bool(rr)), int(rr_start),
-            int(bool(nee) and cms.n_lights > 0), int(bool(mis)),
-            state.data_ptr(), rid.data_ptr(), segs.data_ptr(), n,
-            err.data_ptr(), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"fused-bounce launch failed: CUDA error {rc} "
-                           f"({lib.mcpt_error_string(rc).decode()})")
-    LAUNCHES += 1
+    _build.launch(
+        "mcpt_fused_bounce", dev, cms.wnodes.data_ptr(), cms.tri16.data_ptr(),
+        cms.live.data_ptr(), cms.matt.data_ptr(), cms.lit.data_ptr(),
+        cms.wnodes.shape[0], cms.leaf_size, cap, cms.n_lights, _f32(cms.eps),
+        _f32(t_min), _f32(cms.total_light_area), _f32(clamp),
+        int(seed) & _M32, int(depth), int(max_depth), int(bool(rr)),
+        int(rr_start), int(bool(nee) and cms.n_lights > 0), int(bool(mis)),
+        state.data_ptr(), rid.data_ptr(), segs.data_ptr(), n, err.data_ptr())
     with span("mcpt.wait.k2_flag"):
         overflow = int(err[0].item())
     if overflow != 0:
@@ -428,17 +403,14 @@ def fused_bounce(cms: ClusterMegaScene, state: torch.Tensor,
                  mis: bool = False, clamp: float = 0.0,
                  t_min: float = 1e-4) -> torch.Tensor:
     """One hybrid bounce: updates ``state`` ((16, N) f32) in place and
-    returns the (N,) segments.  The device of ``state`` decides: CPU
-    tensors run the plain version, CUDA tensors launch the kernel (or
-    raise)."""
+    returns the (N,) segments.  The device of ``state`` decides
+    (``_build.use_kernel``): CPU tensors run the plain version, CUDA
+    tensors launch the kernel (or raise)."""
     args = (cms, state, rid, seed, depth, max_depth, rr, rr_start, nee, mis,
             clamp, t_min)
-    kind = state.device.type
-    if kind == "cpu":
-        return fused_bounce_reference(*args)
-    if kind == "cuda":
+    if _build.use_kernel("fused_bounce", state):
         return _fused_bounce_cuda(*args)
-    raise ValueError(f"fused_bounce runs on cpu or cuda tensors, not {kind}")
+    return fused_bounce_reference(*args)
 
 
 # --------------------------------------------------------------------------
@@ -493,20 +465,17 @@ def _render_cluster_mega_cuda(cms: ClusterMegaScene, cam: T.Camera, width,
     """Launch ``mcpt_torch/csrc/cluster_mega.cu`` on the current stream.
     Raises on a refused launch and on the stack-overflow flag (read back,
     so the call synchronises)."""
-    global CLUSTER_MEGA_LAUNCHES
-    from mcpt_torch.kernels import _build
-
     with span("mcpt.cluster_mega.launch"):
         regen = mk._resolve_schedule(schedule, spp)
         for name in ("matt", "lit"):
-            mk._check_cuda(f"cms.{name}", getattr(cms, name))
+            _build.check_cuda(f"cms.{name}", getattr(cms, name))
         dev = cms.wnodes.device
         cap = _check_walk_tables(cms, dev)
         for t in (cms.matt, cms.lit):
             if t.device != dev:
                 raise ValueError(f"tables on {t.device} and {dev}")
         sf = mk._sf(cms, cam, t_min, clamp)
-        mk._check_cuda("camera", sf)
+        _build.check_cuda("camera", sf)
         if sf.device != dev:
             raise ValueError(f"camera on {sf.device}, tables on {dev}")
         _, inv, pix32 = tile_pixels(width, height, dev)
@@ -521,22 +490,14 @@ def _render_cluster_mega_cuda(cms: ClusterMegaScene, cam: T.Camera, width,
         out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
         # [0] the stack-overflow flag, [1] the next lane to hand out
         err = torch.zeros(2, dtype=torch.int32, device=dev)
-        lib = _build.load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.mcpt_render_cluster(
-                si.ctypes.data, sf.data_ptr(), cms.wnodes.data_ptr(),
-                cms.tri16.data_ptr(), cms.live.data_ptr(),
-                cms.wnodes.shape[0], cms.leaf_size, cap, cms.matt.data_ptr(),
-                cms.lit.data_ptr(), cms.matt.shape[0], cms.lit.shape[0],
-                int(nee and cms.n_lights > 0), int(mis), int(regen),
-                pix32.data_ptr(), n_lanes, out[0].data_ptr(),
-                out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
-                err.data_ptr(), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"cluster megakernel launch failed: CUDA error "
-                           f"{rc} ({lib.mcpt_error_string(rc).decode()})")
-    CLUSTER_MEGA_LAUNCHES += 1
+        _build.launch(
+            "mcpt_render_cluster", dev, si.ctypes.data, sf.data_ptr(),
+            cms.wnodes.data_ptr(), cms.tri16.data_ptr(), cms.live.data_ptr(),
+            cms.wnodes.shape[0], cms.leaf_size, cap, cms.matt.data_ptr(),
+            cms.lit.data_ptr(), cms.matt.shape[0], cms.lit.shape[0],
+            int(nee and cms.n_lights > 0), int(mis), int(regen),
+            pix32.data_ptr(), n_lanes, out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), out[3].data_ptr(), err.data_ptr())
     with span("mcpt.wait.k3_flag"):
         overflow = int(err[0].item())
     if overflow != 0:
@@ -571,17 +532,13 @@ def render_cluster_mega(cms: ClusterMegaScene, cam: T.Camera, width: int,
     order; ``sample_base`` offsets the sample index of every RNG counter,
     (sample_base + s)·W·H + pixel.
 
-    The device of the tables decides: CPU tensors run the plain version,
-    CUDA tensors launch kernel 3 (or raise)."""
+    The device of the tables decides (``_build.use_kernel``): CPU tensors
+    run the plain version, CUDA tensors launch kernel 3 (or raise)."""
     args = (cms, cam, width, height, spp, seed, max_depth, rr, rr_start, nee,
             mis, clamp, t_min, schedule, pix, sample_base)
-    kind = cms.wnodes.device.type
-    if kind == "cpu":
-        return render_cluster_mega_reference(*args)
-    if kind == "cuda":
+    if _build.use_kernel("render_cluster_mega", cms.wnodes):
         return _render_cluster_mega_cuda(*args)
-    raise ValueError(f"render_cluster_mega runs on cpu or cuda tensors, not "
-                     f"{kind}")
+    return render_cluster_mega_reference(*args)
 
 
 # --------------------------------------------------------------------------
@@ -744,29 +701,13 @@ def _reorder_reference(state, rid, order, keep: int, segs_total):
 _KEY_MODES = ("cell", "dir", "dir6", "dir9")
 
 
-def _launch_stage(dev, fn: str, launches: int, *args) -> None:
-    """Call ``fn`` of the kernel library with ``args`` and the current
-    stream of ``dev``; raise on a refused launch."""
-    global HYBRID_STAGE_LAUNCHES
-    from mcpt_torch.kernels import _build
-
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
-                           f"({lib.mcpt_error_string(rc).decode()})")
-    HYBRID_STAGE_LAUNCHES += launches
-
-
 def _roulette_cuda(state, rid, seed, depth: int, live_cap: float) -> None:
-    """``_roulette`` through ``csrc/hybrid_stage.cu``: the live count into
-    a device int, then one pass that selects and rescales.  Past 2²⁴ lanes
-    the count is exact where the plain float32 sum may round."""
+    """``_roulette`` through ``csrc/hybrid_stage.cu``, one C call: the live
+    count into a device int, then one pass that selects and rescales.  Past
+    2²⁴ lanes the count is exact where the plain float32 sum may round."""
     dev, n = _check_pool(state, rid)
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    _launch_stage(dev, "mcpt_hybrid_roulette", 2, state.data_ptr(),
+    _build.launch("mcpt_hybrid_roulette", dev, state.data_ptr(),
                   rid.data_ptr(), n, _f32(live_cap), int(seed) & _M32,
                   (1009 + depth) & _M32, count.data_ptr())
 
@@ -779,13 +720,13 @@ def _hybrid_sort_key_cuda(ox, oy, oz, dx, dy, dz, alive, bb_lo, bb_inv_ext,
     planes = (ox, oy, oz, dx, dy, dz, alive)
     for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz", "alive"),
                        planes):
-        mk._check_cuda(name, t)
+        _build.check_cuda(name, t)
         if t.dim() != 1 or t.shape != ox.shape or t.device != ox.device:
             raise ValueError(f"{name} must be 1-d, of ox's length, on "
                              f"ox's device")
     n = ox.numel()
     key = torch.empty(n, dtype=torch.int32, device=ox.device)
-    _launch_stage(ox.device, "mcpt_hybrid_sort_key", 1,
+    _build.launch("mcpt_hybrid_sort_key", ox.device,
                   *(t.data_ptr() for t in planes), n,
                   *(_f32(x) for x in bb_lo), *(_f32(x) for x in bb_inv_ext),
                   _KEY_MODES.index(key_mode), COARSE_BITS, key.data_ptr())
@@ -812,7 +753,7 @@ def _reorder_cuda(state, rid, order, keep: int, segs_total):
     if keep < n:
         tail = (torch.empty(n - keep, dtype=torch.int32, device=dev),
                 torch.empty((3, n - keep), dtype=torch.float32, device=dev))
-    _launch_stage(dev, "mcpt_hybrid_reorder", 1, state.data_ptr(),
+    _build.launch("mcpt_hybrid_reorder", dev, state.data_ptr(),
                   rid.data_ptr(), order.data_ptr(), n, keep, out.data_ptr(),
                   out_rid.data_ptr(), *((None, None) if tail is None else
                                         (t.data_ptr() for t in tail)),
@@ -820,54 +761,38 @@ def _reorder_cuda(state, rid, order, keep: int, segs_total):
     return out, out_rid, tail, segs_total
 
 
-def _by_device(name: str, t: torch.Tensor, plain, kernel, args):
-    kind = t.device.type
-    if kind == "cpu":
-        return plain(*args)
-    if kind == "cuda":
-        return kernel(*args)
-    raise ValueError(f"{name} runs on cpu or cuda tensors, not {kind}")
-
-
 def roulette(state, rid, seed, depth: int, live_cap: float) -> None:
     """``_roulette`` (in place): its plain version for CPU tensors, the
     kernels for CUDA tensors (or raise)."""
-    return _by_device("roulette", state, _roulette, _roulette_cuda,
-                      (state, rid, seed, depth, live_cap))
+    args = (state, rid, seed, depth, live_cap)
+    if _build.use_kernel("roulette", state):
+        return _roulette_cuda(*args)
+    return _roulette(*args)
 
 
 def sort_key(ox, oy, oz, dx, dy, dz, alive, bb_lo, bb_inv_ext,
              key_mode: str = "cell"):
     """``_hybrid_sort_key``: its plain version for CPU tensors, the kernel
     for CUDA tensors (or raise)."""
-    return _by_device("sort_key", ox, _hybrid_sort_key, _hybrid_sort_key_cuda,
-                      (ox, oy, oz, dx, dy, dz, alive, bb_lo, bb_inv_ext,
-                       key_mode))
+    args = (ox, oy, oz, dx, dy, dz, alive, bb_lo, bb_inv_ext, key_mode)
+    if _build.use_kernel("sort_key", ox):
+        return _hybrid_sort_key_cuda(*args)
+    return _hybrid_sort_key(*args)
 
 
 def reorder(state, rid, order, keep: int, segs_total):
     """``_reorder_reference``: itself for CPU tensors, the kernel for CUDA
     tensors (or raise)."""
-    return _by_device("reorder", state, _reorder_reference, _reorder_cuda,
-                      (state, rid, order, keep, segs_total))
-
-
-class HybridStages(NamedTuple):
-    """The stages between two bounces that ``_run_hybrid`` calls."""
-
-    roulette: Callable
-    sort_key: Callable
-    reorder: Callable
-
-
-STAGES = HybridStages(roulette, sort_key, reorder)
-PLAIN_STAGES = HybridStages(_roulette, _hybrid_sort_key, _reorder_reference)
+    args = (state, rid, order, keep, segs_total)
+    if _build.use_kernel("reorder", state):
+        return _reorder_cuda(*args)
+    return _reorder_reference(*args)
 
 
 def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
                 rr_start=3, nee=False, mis=False, clamp=0.0, t_min=1e-4,
-                compact=None, key_mode="auto", live=None, bounce=None,
-                perm=None, sample_base=0, stages=STAGES):
+                compact=None, key_mode="auto", live=None, perm=None,
+                sample_base=0):
     """The pipeline of ``_render_hybrid_jit`` as a loop over depths →
     ((W·H, 3) radiance sum in pixel order, float64 0-d segment count); with
     ``perm`` (pixel ids) the (len(perm), 3) sums of those pixels in
@@ -876,10 +801,7 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
     Each stage is a span (``mcpt.hybrid.raygen``, ``.bounce``,
     ``.roulette``, ``.sort``, ``.reduce``); ``live`` (a list) receives the
     live share of the pool after each bounce but the last (the pilot's
-    measurement); ``bounce`` replaces ``fused_bounce`` and ``stages`` the
-    dispatchers between bounces (``render_hybrid_reference`` passes the
-    plain ones)."""
-    bounce = fused_bounce if bounce is None else bounce
+    measurement)."""
     key_mode = resolve_key_mode(key_mode, compact)
     dev = cms.wnodes.device
     n_px = width * height if perm is None else perm.numel()
@@ -894,8 +816,8 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
     tails = []  # dropped (rid, radiance) of compacted-away lanes
     for d in range(max_depth):
         with span("mcpt.hybrid.bounce"):
-            segs = bounce(cms, state, rid, seed, d, max_depth, rr, rr_start,
-                          nee, mis, clamp, t_min)
+            segs = fused_bounce(cms, state, rid, seed, d, max_depth, rr,
+                                rr_start, nee, mis, clamp, t_min)
             segs_total = segs_total + segs.to(torch.float64).sum()
         if live is not None and d + 1 < max_depth:
             live.append(float(state[ALIVE].sum()) / n_rays)
@@ -903,16 +825,15 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
         if shrink:
             # 97% of the next pool's lanes: the 3% Bernoulli margin
             with span("mcpt.hybrid.roulette"):
-                stages.roulette(state, rid, seed, d,
-                                0.97 * rows_at[d + 1] * 128)
+                roulette(state, rid, seed, d, 0.97 * rows_at[d + 1] * 128)
         if d + 1 == max_depth:
             break  # the final reduce orders the lanes by id anyway
         with span("mcpt.hybrid.sort"):
-            key = stages.sort_key(*state[:6], state[ALIVE], cms.bb_lo,
-                                  cms.bb_inv_ext, key_mode)
+            key = sort_key(*state[:6], state[ALIVE], cms.bb_lo,
+                           cms.bb_inv_ext, key_mode)
             # stable: the dead lanes' DEAD_KEY ties keep their order
             order = torch.sort(key, stable=True).indices
-            state, rid, tail, segs_total = stages.reorder(
+            state, rid, tail, segs_total = reorder(
                 state, rid, order, rows_at[d + 1] * 128, segs_total)
             if tail is not None:
                 tails.append(tail)
@@ -959,12 +880,10 @@ def render_hybrid(cms: ClusterMegaScene, cam: T.Camera, width: int,
 
 def render_hybrid_reference(cms: ClusterMegaScene, cam: T.Camera,
                             width: int, height: int, spp: int, seed, **kw):
-    """``render_hybrid`` (same arguments) with every bounce through the
-    plain ``fused_bounce_reference`` and every stage between bounces
-    through its plain version (``PLAIN_STAGES``), on whatever device the
-    tables are: on CUDA tensors it is the whole pipeline the kernels are
-    held against."""
-    return _run_hybrid(cms, cam, width, height, spp, seed,
-                       bounce=fused_bounce_reference, stages=PLAIN_STAGES,
-                       **kw)
+    """``render_hybrid`` (same arguments) inside ``_build.plain_versions()``:
+    every bounce and every stage between bounces through its plain
+    version, on whatever device the tables are.  On CUDA tensors it is the
+    whole pipeline the kernels are held against."""
+    with _build.plain_versions():
+        return render_hybrid(cms, cam, width, height, spp, seed, **kw)
 

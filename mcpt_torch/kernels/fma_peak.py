@@ -9,23 +9,20 @@ times.  ``runtime.measure_fp32_peak`` times it for the card's FP32 rate.
 
 Three layers: ``fma_chain_reference``, the plain version; ``_fma_chain_cuda``,
 which launches ``mcpt_torch/csrc/fma_peak.cu`` (one fused multiply-add,
-``__fmaf_rn``, per step); and the dispatch in ``fma_chain``: CPU tensors run
-the plain version, CUDA tensors launch the kernel, anything else raises.
+``__fmaf_rn``, per step); and the dispatch in ``fma_chain``
+(``_build.use_kernel``): CPU tensors run the plain version, CUDA tensors
+launch the kernel, anything else raises.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from mcpt_torch.kernels import _build
 
 # mcpt's probe (mcpt/runtime.py:169): 512 blocks of 256 rows, 256 FMAs a loop
 # iteration, 32 iterations
 SUB, COLS, UNROLL, LOOPS, GRID = 256, 128, 256, 32, 512
-
-# kernel launches made on CUDA tensors (never the plain version's calls) —
-# read by chip_smoke.py to show the probe ran the kernel
-LAUNCHES = 0
 
 
 def flops(rows: int, loops: int = LOOPS) -> float:
@@ -53,20 +50,9 @@ def fma_chain_reference(x: torch.Tensor, unroll: int = UNROLL,
 
 def _fma_chain_cuda(x: torch.Tensor, loops: int = LOOPS) -> torch.Tensor:
     """Launch ``mcpt_torch/csrc/fma_peak.cu`` on the current stream."""
-    global LAUNCHES
-    from mcpt_torch.kernels import _build
-
     out = torch.empty_like(x)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.mcpt_fma_chain(x.data_ptr(), out.data_ptr(),
-                                x.shape[0] // SUB, loops,
-                                ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"fma_chain launch failed: CUDA error {rc} "
-                           f"({lib.mcpt_error_string(rc).decode()})")
-    LAUNCHES += 1
+    _build.launch("mcpt_fma_chain", x.device, x.data_ptr(), out.data_ptr(),
+                  x.shape[0] // SUB, loops)
     return out
 
 
@@ -78,9 +64,6 @@ def fma_chain(x: torch.Tensor, loops: int = LOOPS) -> torch.Tensor:
             or x.shape[0] % SUB or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous float32 (k·{SUB}, {COLS}) "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return fma_chain_reference(x, UNROLL, loops)
-    if x.device.type != "cuda":
-        raise ValueError(f"fma_chain runs on cpu or cuda tensors, not "
-                         f"{x.device.type}")
-    return _fma_chain_cuda(x, loops)
+    if _build.use_kernel("fma_chain", x):
+        return _fma_chain_cuda(x, loops)
+    return fma_chain_reference(x, UNROLL, loops)

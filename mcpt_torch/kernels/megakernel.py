@@ -13,9 +13,10 @@ Port of ``mcpt/pallas/megakernel.py`` (``_render_mega_jit``, whose
   as tensor ops over lanes (``render_lanes_reference``, which the cluster
   megakernel's plain version runs with its own intersectors and pixel
   table);
-- ``render_mega`` — the dispatcher: the plain version for CPU tensors, the
-  hand-written CUDA kernel (``mcpt_torch/csrc/megakernel.cu``) for CUDA
-  tensors, and an exception for anything else.  Nothing falls back.
+- ``render_mega`` — the dispatcher (``_build.use_kernel``): the plain
+  version for CPU tensors, the hand-written CUDA kernel
+  (``mcpt_torch/csrc/megakernel.cu``) for CUDA tensors, and an exception
+  for anything else.  Nothing falls back.
 
 Both versions let a lane stop at its own death.  The TPU kernel keeps dead
 lanes iterating until the whole block retires; that is the same estimator
@@ -26,7 +27,6 @@ product of BSDF weights and RR factors ≤ 1/0.05).
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple
 
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from mcpt_torch import types as T
+from mcpt_torch.kernels import _build
 from mcpt_torch.trace import span
 
 # Scenes up to this size keep their triangle rows in scene order (the TPU
@@ -51,10 +52,8 @@ _C1 = 0x85EBCA6B
 _C2 = 0xC2B2AE35
 _GR = 0x9E3779B1
 
-# kernel launches made by ``render_mega`` on CUDA tensors (never the plain
-# version's calls) — read by chip_smoke.py to show the main path used the kernel
-LAUNCHES = 0
-# the same launches by the table home ``table_home`` chose for them
+# kernel launches (``_build.LAUNCHES["mcpt_render_mega"]``) by the table
+# home ``table_home`` chose for them
 HOMES = {"shared": 0, "global": 0}
 # the shared memory a block may hold, less the 19-float sf table: tables
 # past it stay in global memory
@@ -831,34 +830,22 @@ def _reduce(lanes: torch.Tensor, regen: bool, spp: int, n_pixels: int):
 # --------------------------------------------------------------------------
 
 
-def _check_cuda(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _render_mega_cuda(mega: MegaScene, cam: T.Camera, width, height, spp,
                       seed, max_depth, rr, rr_start, nee, mis, clamp, t_min,
                       pixel_base, pixel_count, sample_base, schedule,
                       lib=None):
     """Launch ``mcpt_torch/csrc/megakernel.cu`` on the current stream, from
     ``lib`` (default: the library built with ``_build.NVCC_FLAGS``)."""
-    global LAUNCHES
-    from mcpt_torch.kernels import _build
-
     with span("mcpt.mega.launch"):
         regen = _resolve_schedule(schedule, spp)
         n_pixels = width * height if pixel_count is None else pixel_count
         for name in ("tri", "cbox", "matt", "lit"):
-            _check_cuda(f"mega.{name}", getattr(mega, name))
+            _build.check_cuda(f"mega.{name}", getattr(mega, name))
         for name in ("tri", "cbox"):  # read as float4s
             if getattr(mega, name).data_ptr() % 16:
                 raise ValueError(f"mega.{name} must be 16-byte aligned")
         sf = _sf(mega, cam, t_min, clamp)
-        _check_cuda("camera", sf)
+        _build.check_cuda("camera", sf)
         dev = mega.tri.device
         if sf.device != dev:
             raise ValueError(f"camera on {sf.device}, tables on {dev}")
@@ -870,25 +857,14 @@ def _render_mega_cuda(mega: MegaScene, cam: T.Camera, width, height, spp,
                 mega.cbox.shape[0])
         home = table_home(*rows)
         out = torch.empty((4, n_lanes), dtype=torch.float32, device=dev)
-        if lib is None:
-            lib = _build.load()
-        # the C side launches on the calling thread's current device
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.mcpt_render_mega(
-                si.ctypes.data, sf.data_ptr(), mega.tri.data_ptr(),
-                mega.matt.data_ptr(), mega.lit.data_ptr(),
-                mega.cbox.data_ptr(), *rows,
-                int(tier(mega.n_tris) == "chunked"),
-                int(nee and mega.n_lights > 0), int(mis), int(regen),
-                _HOME_CODES[home], out[0].data_ptr(), out[1].data_ptr(),
-                out[2].data_ptr(), out[3].data_ptr(),
-                ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"megakernel launch failed: CUDA error {err} "
-            f"({lib.mcpt_error_string(err).decode()})")
-    LAUNCHES += 1
+        _build.launch(
+            "mcpt_render_mega", dev, si.ctypes.data, sf.data_ptr(),
+            mega.tri.data_ptr(), mega.matt.data_ptr(), mega.lit.data_ptr(),
+            mega.cbox.data_ptr(), *rows,
+            int(tier(mega.n_tris) == "chunked"),
+            int(nee and mega.n_lights > 0), int(mis), int(regen),
+            _HOME_CODES[home], out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), out[3].data_ptr(), lib=lib)
     HOMES[home] += 1
     with span("mcpt.mega.reduce"):
         return _reduce(out, regen, spp, n_pixels)
@@ -904,15 +880,12 @@ def render_mega(mega: MegaScene, cam: T.Camera, width: int, height: int,
     ``mcpt.pallas.megakernel.render_mega``'s arguments (less the TPU-only
     ``interpret`` and the bench instrumentation ``count_rows``).
 
-    The device of ``mega``'s tables decides: CPU tensors run the plain
-    version, CUDA tensors launch the kernel (or raise).  Segments are a
-    float64 0-d tensor on the same device."""
-    kind = mega.tri.device.type
+    The device of ``mega``'s tables decides (``_build.use_kernel``): CPU
+    tensors run the plain version, CUDA tensors launch the kernel (or
+    raise).  Segments are a float64 0-d tensor on the same device."""
     args = (mega, cam, width, height, spp, seed, max_depth, rr, rr_start,
             nee, mis, clamp, t_min, pixel_base, pixel_count, sample_base,
             schedule)
-    if kind == "cpu":
-        return render_mega_reference(*args)
-    if kind == "cuda":
+    if _build.use_kernel("render_mega", mega.tri):
         return _render_mega_cuda(*args)
-    raise ValueError(f"render_mega runs on cpu or cuda tensors, not {kind}")
+    return render_mega_reference(*args)

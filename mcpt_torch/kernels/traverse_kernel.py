@@ -14,8 +14,9 @@ Three layers: ``traverse_reference``, the plain version (``walk_reference``
 of the hybrid engine, one stack per ray, run on the active rays only), with
 ``hit_from_rows`` building its ``Hit``; ``_traverse_cuda``, which launches
 ``mcpt_torch/csrc/traverse.cu`` (its closest hit writes the ``Hit`` itself);
-and the dispatch in ``_on_kernel``: CPU tensors run the plain version, CUDA
-tensors launch the kernel, anything else raises.  Nothing falls back.  The
+and the dispatch through ``_build.use_kernel``: CPU tensors run the plain
+version, CUDA tensors launch the kernel, anything else raises.  Nothing
+falls back.  The
 kernel's stack-overflow flag is read back after each launch, or once at the
 end of an ``overflow_checked_once`` block (the wavefront's bounce loops).
 
@@ -27,21 +28,17 @@ its lanes' nodes).  Here an inactive ray simply exits.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import math
 
 import torch
 
+from mcpt_torch.kernels import _build
 from mcpt_torch.kernels import cluster_megakernel as cmk
 from mcpt_torch.trace import span, spanned
 from mcpt_torch.types import Hit
 
 _MISS = 3.0e38  # t of a miss in the raw outputs (the kernels' kMiss)
 
-# kernel launches made on CUDA tensors (never the plain version's calls) —
-# read by chip_smoke.py to show the main path used the kernel
-LAUNCHES = 0
-_PLAIN_ON_CUDA = False
 # inside overflow_checked_once(): {device: (flag, stack entries)}, the one
 # device int each launch ORs its stack-overflow flag into
 _DEFERRED: dict | None = None
@@ -88,19 +85,6 @@ def _overflow_flag(dev, cap: int) -> torch.Tensor:
     return _DEFERRED[dev][0]
 
 
-@contextlib.contextmanager
-def plain_version_on_cuda():
-    """Inside this block CUDA tensors run the plain version instead of the
-    kernel: how a whole wavefront render is held against its plain version
-    on the card.  Nothing else sets it."""
-    global _PLAIN_ON_CUDA
-    saved, _PLAIN_ON_CUDA = _PLAIN_ON_CUDA, True
-    try:
-        yield
-    finally:
-        _PLAIN_ON_CUDA = saved
-
-
 def traverse_reference(cl, origin, direction, active, limit, any_hit: bool,
                        t_min: float = 1e-4):
     """The plain version over (R, 3) rays, an (R,) bool ``active`` mask and
@@ -127,15 +111,10 @@ def traverse_reference(cl, origin, direction, active, limit, any_hit: bool,
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    _build.check_cuda(name, t, dtype)
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
@@ -146,9 +125,6 @@ def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
     a refused launch and on the kernel's stack-overflow flag: read back at
     once (the call then synchronises), or inside ``overflow_checked_once``
     at the block's end."""
-    global LAUNCHES
-    from mcpt_torch.kernels import _build
-
     r = origin.shape[0]
     dev = origin.device
     _check("origin", origin, torch.float32, (r, 3))
@@ -175,33 +151,15 @@ def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
                   normal=torch.empty((r, 3), dtype=torch.float32,
                                      device=dev))
         outs = (*(x.data_ptr() for x in hit), None)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mcpt_traverse(
-            cl.wnodes.data_ptr(), cl.tri16.data_ptr(), cl.live.data_ptr(),
-            cl.tri_map.data_ptr(), cl.wnodes.shape[0], cl.leaf_size, cap,
-            origin.data_ptr(), direction.data_ptr(), active.data_ptr(),
-            None if limit is None else limit.data_ptr(), float(t_min),
-            int(any_hit), *outs, r, err.data_ptr(), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"traverse launch failed: CUDA error {rc} "
-                           f"({lib.mcpt_error_string(rc).decode()})")
-    LAUNCHES += 1
+    _build.launch(
+        "mcpt_traverse", dev, cl.wnodes.data_ptr(), cl.tri16.data_ptr(),
+        cl.live.data_ptr(), cl.tri_map.data_ptr(), cl.wnodes.shape[0],
+        cl.leaf_size, cap, origin.data_ptr(), direction.data_ptr(),
+        active.data_ptr(), None if limit is None else limit.data_ptr(),
+        float(t_min), int(any_hit), *outs, r, err.data_ptr())
     if not deferred:
         _raise_on_overflow(err, cap)
     return occ if any_hit else hit
-
-
-def _on_kernel(origin) -> bool:
-    """True: launch the kernel; False: run the plain version."""
-    kind = origin.device.type
-    if kind == "cpu" or (kind == "cuda" and _PLAIN_ON_CUDA):
-        return False
-    if kind == "cuda":
-        return True
-    raise ValueError(f"cluster traversal runs on cpu or cuda tensors, not "
-                     f"{kind}")
 
 
 def _limits(t_max, r: int, dev) -> torch.Tensor:
@@ -239,7 +197,7 @@ def intersect_clusters(cl, origin, direction, active=None, t_max=None,
     r = origin.shape[0]
     dev = origin.device
     act = _active(active, r, dev)
-    if _on_kernel(origin):
+    if _build.use_kernel("intersect_clusters", origin):
         lim = (None if t_max is None
                else _limits(t_max, r, dev).contiguous())
         return _traverse_cuda(cl, origin.contiguous(),
@@ -260,7 +218,7 @@ def occluded_clusters(cl, origin, direction, t_max, active=None,
     dev = origin.device
     act = _active(active, r, dev)
     lim = _limits(t_max, r, dev)
-    if _on_kernel(origin):
+    if _build.use_kernel("occluded_clusters", origin):
         return _traverse_cuda(cl, origin.contiguous(), direction.contiguous(),
                               act.contiguous(), lim.contiguous(), True, t_min)
     return traverse_reference(cl, origin, direction, act, lim, True, t_min)

@@ -17,45 +17,26 @@ version, with uint32 arithmetic held in int64 tensors masked to 32 bits
 (torch's ``>>`` on int32 is arithmetic, so no signed 32-bit value is ever
 shifted); ``_threefry_cuda``, which launches ``mcpt_torch/csrc/threefry.cu``
 (one pass, uint32 words, only the output written); and the dispatch in
-``_draw``: CPU tensors run the plain version, CUDA tensors launch the kernel,
-any other device raises.  Nothing falls back.  A key lives on the host as
-two Python ints (``Key``), and ``key``, ``fold_in`` and ``split`` stay
-scalar hashes on the host; the draws land by default on the card, as
-``jax.random``'s land on the accelerator.
+``_draw`` (``_build.use_kernel``): CPU tensors run the plain version, CUDA
+tensors launch the kernel, any other device raises.  Nothing falls back.
+A key lives on the host as two Python ints (``Key``), and ``key``,
+``fold_in`` and ``split`` stay scalar hashes on the host; the draws land by
+default on the card, as ``jax.random``'s land on the accelerator.
 """
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 
+from mcpt_torch.kernels import _build
 from mcpt_torch.trace import spanned
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
-
-# kernel launches made on CUDA tensors (never the plain version's calls) —
-# read by chip_smoke.py to show the main path used the kernel
-LAUNCHES = 0
-_PLAIN_ON_CUDA = False
-
-
-@contextlib.contextmanager
-def plain_version_on_cuda():
-    """Inside this block draws on CUDA run the plain version instead of the
-    kernel: how a whole wavefront render is held against its plain version
-    on the card.  Nothing else sets it."""
-    global _PLAIN_ON_CUDA
-    saved, _PLAIN_ON_CUDA = _PLAIN_ON_CUDA, True
-    try:
-        yield
-    finally:
-        _PLAIN_ON_CUDA = saved
 
 
 class Key(NamedTuple):
@@ -121,34 +102,21 @@ def _threefry_cuda(k: Key, shape, device, uniform: bool) -> torch.Tensor:
     """Launch ``mcpt_torch/csrc/threefry.cu`` on the current stream of
     ``device``: float32 uniforms or int64 bits of ``shape``, the plain
     version's bits.  Raises on a refused launch."""
-    global LAUNCHES
-    from mcpt_torch.kernels import _build
-
     out = torch.empty(tuple(shape),
                       dtype=torch.float32 if uniform else torch.int64,
                       device=device)
     n = out.numel()
     if n == 0:
         return out
-    lib = _build.load()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = lib.mcpt_threefry(k.k1 & _M32, k.k2 & _M32, n, int(uniform),
-                               out.data_ptr(), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"threefry launch failed: CUDA error {rc} "
-                           f"({lib.mcpt_error_string(rc).decode()})")
-    LAUNCHES += 1
+    _build.launch("mcpt_threefry", out.device, k.k1 & _M32, k.k2 & _M32, n,
+                  int(uniform), out.data_ptr())
     return out
 
 
-def _draw(k: Key, shape, device, uniform: bool) -> torch.Tensor:
+def _draw(name: str, k: Key, shape, device, uniform: bool) -> torch.Tensor:
     dev = torch.device(device)
-    if dev.type == "cuda" and not _PLAIN_ON_CUDA:
+    if _build.use_kernel(name, dev):
         return _threefry_cuda(k, shape, dev, uniform)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"threefry draws run on cpu or cuda, not "
-                         f"{dev.type}")
     hi, lo = _iota(math.prod(shape), dev)
     a, b = threefry2x32(k.k1, k.k2, hi, lo)
     b = (a ^ b).reshape(tuple(shape))
@@ -161,10 +129,10 @@ def _draw(k: Key, shape, device, uniform: bool) -> torch.Tensor:
 def bits(k: Key, shape, device="cuda") -> torch.Tensor:
     """32 random bits per element (``jax.random.bits(k, shape)``), held in
     int64."""
-    return _draw(k, shape, device, uniform=False)
+    return _draw("bits", k, shape, device, uniform=False)
 
 
 @spanned("mcpt.rng.uniform")
 def uniform(k: Key, shape, device="cuda") -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32)`` in [0, 1)."""
-    return _draw(k, shape, device, uniform=True)
+    return _draw("uniform", k, shape, device, uniform=True)

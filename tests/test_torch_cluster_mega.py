@@ -31,6 +31,7 @@ from mcpt.scene import build_scene as jbuild_scene
 from mcpt_torch import convert, rng
 from mcpt_torch.bvh.lbvh import one_thread
 from mcpt_torch import scenes as tscenes
+from mcpt_torch.kernels import _build
 from mcpt_torch.kernels import cluster_megakernel as cmk
 from mcpt_torch.kernels import megakernel as mk
 from mcpt_torch.kernels import traverse_kernel as tk
@@ -145,11 +146,11 @@ def test_plain_versions_never_count_launches(boxfield60):
     cms = cmk.build_cluster_megascene(scene, lights)
     cam = tcamera.make_camera(dataclasses.replace(camcfg, resolution=(4, 4)),
                               device="cpu")
-    before = (tk.LAUNCHES, cmk.CLUSTER_MEGA_LAUNCHES, cmk.LAUNCHES)
+    before = _build.LAUNCHES.copy()
     cmk.render_cluster_mega(cms, cam, 4, 4, spp=1, seed=0, max_depth=2)
     pool = _pool(camcfg, 4, 4, 0)
     tk.intersect_clusters(scene.clusters, pool.origin, pool.direction)
-    assert (tk.LAUNCHES, cmk.CLUSTER_MEGA_LAUNCHES, cmk.LAUNCHES) == before
+    assert _build.LAUNCHES == before
 
 
 def test_overflow_checked_once_reads_the_flag_at_its_end():

@@ -7,6 +7,7 @@ On a machine with a card:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import collections
 import dataclasses
 import math
 
@@ -47,9 +48,9 @@ def test_kernel_matches_plain_version(cuda, name, depth, schedule):
     mega, cam = _setup(name, 24, 16, cuda)
     kw = dict(spp=3, seed=2, max_depth=depth, rr=True, nee=True, mis=True,
               schedule=schedule)
-    before = mk.LAUNCHES
+    before = _build.LAUNCHES["mcpt_render_mega"]
     a, sa = mk.render_mega(mega, cam, 24, 16, **kw)
-    assert mk.LAUNCHES == before + 1
+    assert _build.LAUNCHES["mcpt_render_mega"] == before + 1
     b, sb = mk.render_mega_reference(mega, cam, 24, 16, **kw)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert float(sa) == float(sb)
@@ -243,9 +244,9 @@ def test_fused_bounce_matches_plain_version(cuda):
     kw = dict(max_depth=4, rr=True, rr_start=1, nee=True, mis=True)
     for depth in range(4):
         a, b = state.clone(), state.clone()
-        before = cmk.LAUNCHES
+        before = _build.LAUNCHES["mcpt_fused_bounce"]
         sa = cmk.fused_bounce(cms, a, rid, 6, depth, **kw)
-        assert cmk.LAUNCHES == before + 1
+        assert _build.LAUNCHES["mcpt_fused_bounce"] == before + 1
         sb = cmk.fused_bounce_reference(cms, b, rid, 6, depth, **kw)
         assert torch.equal(sa, sb), depth
         for plane in range(9, 13):
@@ -259,7 +260,8 @@ def test_render_hybrid_kernel_matches_plain_pipeline(cuda):
     """Kernel 2 and the between-bounce kernels together against the
     all-plain pipeline (plain bounce, plain stages), bit for bit.  At 8 spp
     the pool (8192 lanes) shrinks to 4096 after bounce 0, through the
-    roulette kernels and a tail: 2 launches a roulette and 2 a re-sort."""
+    roulette kernels and a tail: one roulette call a shrink, one key and
+    one reorder call a re-sort; the plain pipeline calls none."""
     cmk, cms, cam, _, _ = _hybrid_setup(cuda)
     for spp, kw in ((4, dict(key_mode="cell")),
                     (8, dict(key_mode="dir6", compact=(0.5, 0.3, 0.3)))):
@@ -269,11 +271,14 @@ def test_render_hybrid_kernel_matches_plain_pipeline(cuda):
         rows = cmk._compaction_schedule(rows0, 4, kw.get("compact"))
         shrinks = sum(b < a for a, b in zip(rows, rows[1:]))
         assert shrinks == (1 if "compact" in kw else 0)
-        before = cmk.HYBRID_STAGE_LAUNCHES
+        before = _build.LAUNCHES.copy()
+        want = collections.Counter(
+            mcpt_fused_bounce=4, mcpt_hybrid_roulette=shrinks,
+            mcpt_hybrid_sort_key=3, mcpt_hybrid_reorder=3)
         a, sa = cmk.render_hybrid(cms, cam, 32, 24, **kw)
-        assert cmk.HYBRID_STAGE_LAUNCHES == before + 2 * shrinks + 2 * 3
+        assert _build.LAUNCHES - before == want
         b, sb = cmk.render_hybrid_reference(cms, cam, 32, 24, **kw)
-        assert cmk.HYBRID_STAGE_LAUNCHES == before + 2 * shrinks + 2 * 3
+        assert _build.LAUNCHES - before == want
         torch.testing.assert_close(a, b, rtol=0, atol=0)
         assert float(sa) == float(sb)
 
@@ -358,9 +363,9 @@ def test_roulette_kernel_matches_plain_version(cuda, case):
     live = int((state[cmk.ALIVE] > 0).sum())
     cap = {"p<1": 0.3 * live, "p=1": 2.0 * live, "all dead": 100.0}[case]
     a, b = state.clone(), state.clone()
-    before = cmk.HYBRID_STAGE_LAUNCHES
+    before = _build.LAUNCHES["mcpt_hybrid_roulette"]
     cmk.roulette(a, rid, 2**33 + 5, 3, cap)
-    assert cmk.HYBRID_STAGE_LAUNCHES == before + 2
+    assert _build.LAUNCHES["mcpt_hybrid_roulette"] == before + 1
     cmk._roulette(b, rid, 2**33 + 5, 3, cap)
     assert torch.equal(a, b)
     kept = int((a[cmk.ALIVE] > 0).sum())
@@ -376,9 +381,9 @@ def test_sort_key_kernel_matches_plain_version(cuda, mode):
 
     state, _ = _stage_pool(cuda)
     lo, inv = (-10.0, -9.0, -8.0), (0.05, 0.06, 0.07)
-    before = cmk.HYBRID_STAGE_LAUNCHES
+    before = _build.LAUNCHES["mcpt_hybrid_sort_key"]
     got = cmk.sort_key(*state[:6], state[cmk.ALIVE], lo, inv, mode)
-    assert cmk.HYBRID_STAGE_LAUNCHES == before + 1
+    assert _build.LAUNCHES["mcpt_hybrid_sort_key"] == before + 1
     want = cmk._hybrid_sort_key(*state[:6], state[cmk.ALIVE], lo, inv, mode)
     assert got.dtype == torch.int32 and torch.equal(got, want)
     dead = state[cmk.ALIVE] == 0
@@ -397,9 +402,9 @@ def test_reorder_kernel_matches_plain_version(cuda, keep):
     key = cmk._hybrid_sort_key(*state[:6], state[cmk.ALIVE], lo, inv, "cell")
     order = torch.sort(key, stable=True).indices
     total = torch.full((), 12345.0, dtype=torch.float64, device=cuda)
-    before = cmk.HYBRID_STAGE_LAUNCHES
+    before = _build.LAUNCHES["mcpt_hybrid_reorder"]
     a = cmk.reorder(state, rid, order, keep, total.clone())
-    assert cmk.HYBRID_STAGE_LAUNCHES == before + 1
+    assert _build.LAUNCHES["mcpt_hybrid_reorder"] == before + 1
     b = cmk._reorder_reference(state, rid, order, keep, total.clone())
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert a[0].shape == (16, keep) and a[1].shape == (keep,)
@@ -470,9 +475,9 @@ def test_cluster_mega_matches_plain_version(cuda, schedule):
     cmk, cms, cam, _, _ = _hybrid_setup(cuda)
     kw = dict(spp=3, seed=4, max_depth=4, nee=True, mis=True, rr=True,
               rr_start=1, schedule=schedule)
-    before = cmk.CLUSTER_MEGA_LAUNCHES
+    before = _build.LAUNCHES["mcpt_render_cluster"]
     a, sa = cmk.render_cluster_mega(cms, cam, 32, 24, **kw)
-    assert cmk.CLUSTER_MEGA_LAUNCHES == before + 1
+    assert _build.LAUNCHES["mcpt_render_cluster"] == before + 1
     b, sb = cmk.render_cluster_mega_reference(cms, cam, 32, 24, **kw)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert float(sa) == float(sb)
@@ -487,9 +492,9 @@ def test_cluster_mega_on_a_pixel_subset(cuda, schedule):
     pix = cmk.tile_pixels(37, 23, cuda)[0][77:377]
     kw = dict(spp=3, seed=9, max_depth=4, nee=True, mis=True, rr=True,
               rr_start=1, schedule=schedule, pix=pix, sample_base=5)
-    before = cmk.CLUSTER_MEGA_LAUNCHES
+    before = _build.LAUNCHES["mcpt_render_cluster"]
     a, sa = cmk.render_cluster_mega(cms, cam, 37, 23, **kw)
-    assert cmk.CLUSTER_MEGA_LAUNCHES == before + 1
+    assert _build.LAUNCHES["mcpt_render_cluster"] == before + 1
     b, sb = cmk.render_cluster_mega_reference(cms, cam, 37, 23, **kw)
     assert a.shape == (300, 3) and float(a.sum()) > 0.0
     torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -601,7 +606,7 @@ def test_traverse_matches_plain_version(cuda):
     scene, _ = build_scene(loaded, device=cuda)
     cl = scene.clusters
     o, d, active, limit = _random_rays(cuda)
-    before = tk.LAUNCHES
+    before = _build.LAUNCHES["mcpt_traverse"]
     for lim in (limit, None):
         a = tk._traverse_cuda(cl, o, d, active, lim, False, 1e-4)
         b = tk.hit_from_rows(cl, o, d, *tk.traverse_reference(
@@ -611,7 +616,7 @@ def test_traverse_matches_plain_version(cuda):
     occ = tk._traverse_cuda(cl, o, d, active, limit, True, 1e-4)
     assert torch.equal(occ, tk.traverse_reference(cl, o, d, active, limit,
                                                   True, 1e-4))
-    assert tk.LAUNCHES == before + 3
+    assert _build.LAUNCHES["mcpt_traverse"] == before + 3
     hit = tk.intersect_clusters(cl, o, d, active=active)
     assert int((hit.tri >= 0).sum()) > 1000
     assert (hit.tri[~active] == -1).all()
@@ -660,10 +665,9 @@ def test_wavefront_on_cuda_goes_through_the_kernel(cuda):
     """A clustered scene on CUDA resolves to the cluster kernel: two
     launches a bounce (closest hit and NEE shadow rays), and its draws go
     through the threefry kernel: a camera draw a sample, a shade and an
-    NEE draw a bounce.  Under both plain contexts (kernel 4's and rng's)
-    neither launches, and the image has the same bits."""
+    NEE draw a bounce.  Inside ``_build.plain_versions()`` neither
+    launches, and the image has the same bits."""
     from mcpt_torch import rng
-    from mcpt_torch.kernels import traverse_kernel as tk
     from mcpt_torch.render import integrator as integ
     from mcpt_torch.render import traverse
 
@@ -675,16 +679,16 @@ def test_wavefront_on_cuda_goes_through_the_kernel(cuda):
     opts = integ.RenderOptions(max_depth=4, nee=True, mis=True,
                                russian_roulette=True, rr_start_depth=1,
                                resort=True)
-    before, draws = tk.LAUNCHES, rng.LAUNCHES
+    before = _build.LAUNCHES.copy()
     a, sa = integ.render_batch(scene, lights, cam, 32, 24, rng.key(2), opts,
                                spp=2, with_stats=True)
-    assert tk.LAUNCHES == before + 2 * 4
-    assert rng.LAUNCHES == draws + 2 + 2 * 4
-    with tk.plain_version_on_cuda(), rng.plain_version_on_cuda():
+    want = collections.Counter(mcpt_traverse=2 * 4,
+                               mcpt_threefry=2 + 2 * 4)
+    assert _build.LAUNCHES - before == want
+    with _build.plain_versions():
         b, sb = integ.render_batch(scene, lights, cam, 32, 24, rng.key(2),
                                    opts, spp=2, with_stats=True)
-    assert tk.LAUNCHES == before + 2 * 4
-    assert rng.LAUNCHES == draws + 2 + 2 * 4
+    assert _build.LAUNCHES - before == want
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert float(sa) == float(sb)
 
@@ -723,14 +727,14 @@ def test_traverse_launch_on_ragged_and_dead_pools(cuda, n, dead):
         active = torch.arange(n, device=cuda) < n * 2 // 3
     elif dead == "all":
         active = torch.zeros_like(active)
-    before = tk.LAUNCHES
+    before = _build.LAUNCHES["mcpt_traverse"]
     a = tk.intersect_clusters(cl, o, d, active=active)
     occ = tk.occluded_clusters(cl, o, d, limit, active=active)
-    assert tk.LAUNCHES == before + 2
-    with tk.plain_version_on_cuda():
+    assert _build.LAUNCHES["mcpt_traverse"] == before + 2
+    with _build.plain_versions():
         b = tk.intersect_clusters(cl, o, d, active=active)
         occ_b = tk.occluded_clusters(cl, o, d, limit, active=active)
-    assert tk.LAUNCHES == before + 2
+    assert _build.LAUNCHES["mcpt_traverse"] == before + 2
     assert _same_hits(a, b)
     assert torch.equal(occ, occ_b)
     assert not bool(occ[~active].any()) and bool((a.tri[~active] == -1).all())
@@ -768,11 +772,12 @@ def test_traverse_stack_overflow_raises(cuda):
         tk.occluded_clusters(bad, o, d, limit, active=active)
     opts = integ.RenderOptions(max_depth=3, nee=True, mis=True, resort=True)
     pool = camera_mod.generate_rays(cam, 32, 24, key=rng.key(1))
-    before = tk.LAUNCHES
+    before = _build.LAUNCHES["mcpt_traverse"]
     with pytest.raises(RuntimeError, match="stack overflow"):
         integ.trace(scene._replace(clusters=bad), lights, pool, rng.key(2),
                     opts)
-    assert tk.LAUNCHES == before + 2 * 3  # every bounce ran: no early read
+    # every bounce ran: no early read
+    assert _build.LAUNCHES["mcpt_traverse"] == before + 2 * 3
     assert tk._DEFERRED is None
     out = integ.trace(scene, lights, pool, rng.key(2), opts)
     assert bool(torch.isfinite(out.radiance).all())
@@ -789,17 +794,17 @@ def test_threefry_kernel_matches_plain_version(cuda, seed, shape):
     from mcpt_torch import rng
 
     k = rng.fold_in(rng.key(seed), 3)
-    before = rng.LAUNCHES
+    before = _build.LAUNCHES["mcpt_threefry"]
     u, b = rng.uniform(k, shape, cuda), rng.bits(k, shape, cuda)
     n = 1
     for x in shape:
         n *= x
-    assert rng.LAUNCHES == before + (2 if n else 0)
+    assert _build.LAUNCHES["mcpt_threefry"] == before + (2 if n else 0)
     assert u.dtype == torch.float32 and b.dtype == torch.int64
     assert tuple(u.shape) == shape and tuple(b.shape) == shape
-    with rng.plain_version_on_cuda():
+    with _build.plain_versions():
         u_ref, b_ref = rng.uniform(k, shape, cuda), rng.bits(k, shape, cuda)
-    assert rng.LAUNCHES == before + (2 if n else 0)
+    assert _build.LAUNCHES["mcpt_threefry"] == before + (2 if n else 0)
     assert torch.equal(u.view(torch.int32), u_ref.view(torch.int32))
     assert torch.equal(b, b_ref)
     assert torch.equal(u.cpu().view(torch.int32),
@@ -814,7 +819,7 @@ def test_threefry_kernel_config9_largest_draw(cuda):
     k = rng.key(1234)
     shape = (1920 * 1080 * 4, 6)
     u = rng.uniform(k, shape, cuda)
-    with rng.plain_version_on_cuda():
+    with _build.plain_versions():
         u_ref = rng.uniform(k, shape, cuda)
     assert torch.equal(u.view(torch.int32), u_ref.view(torch.int32))
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
@@ -838,9 +843,9 @@ def test_fma_chain_matches_plain_version(cuda):
 
     gen = torch.Generator().manual_seed(5)
     x = (torch.rand((2 * fp.SUB, fp.COLS), generator=gen) + 0.5).to(cuda)
-    before = fp.LAUNCHES
+    before = _build.LAUNCHES["mcpt_fma_chain"]
     a = fp.fma_chain(x, loops=2)
-    assert fp.LAUNCHES == before + 1
+    assert _build.LAUNCHES["mcpt_fma_chain"] == before + 1
     b = fp.fma_chain_reference(x, loops=2)
     assert _ulps(a, b) <= 2
 
@@ -849,22 +854,23 @@ def test_measure_fp32_peak_launches_the_kernel(cuda):
     from mcpt_torch import runtime
     from mcpt_torch.kernels import fma_peak as fp
 
-    before = fp.LAUNCHES
+    before = _build.LAUNCHES["mcpt_fma_chain"]
     rate = runtime.measure_fp32_peak(repeats=2)
-    assert fp.LAUNCHES == before + 3  # a warm-up and two timed calls
+    # a warm-up and two timed calls
+    assert _build.LAUNCHES["mcpt_fma_chain"] == before + 3
     assert 1e12 < rate < 1e14
 
 
 def test_fma_chain_refusals(cuda):
     from mcpt_torch.kernels import fma_peak as fp
 
-    before = fp.LAUNCHES
+    before = _build.LAUNCHES["mcpt_fma_chain"]
     with pytest.raises(ValueError, match="contiguous"):
         fp.fma_chain(torch.ones((fp.COLS, fp.SUB), device=cuda).t())
     with pytest.raises(ValueError, match="float32"):
         fp.fma_chain(torch.ones((fp.SUB, fp.COLS), dtype=torch.float16,
                                 device=cuda))
-    assert fp.LAUNCHES == before
+    assert _build.LAUNCHES["mcpt_fma_chain"] == before
 
 
 @pytest.mark.parametrize("n_boxes", [60, 400])

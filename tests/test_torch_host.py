@@ -239,7 +239,7 @@ def test_dispatcher_contracts():
     _eq(a[0], b[0])
     assert a[1].dtype == torch.float64
     with pytest.raises(ValueError, match="CUDA"):
-        tmk._check_cuda("x", torch.zeros(4))
+        _build.check_cuda("x", torch.zeros(4))
     with pytest.raises(ValueError):
         tmk.render_mega(mega._replace(tri=mega.tri.to("meta")), cam, 4, 4,
                         spp=1, seed=0)

@@ -26,6 +26,7 @@ import torch
 from mcpt.pallas import cluster_megakernel as jcmk
 from mcpt_torch import convert
 from mcpt_torch import scenes as tscenes
+from mcpt_torch.kernels import _build
 from mcpt_torch.kernels import cluster_megakernel as cmk
 from mcpt_torch.kernels import megakernel as mk
 from mcpt_torch.render.camera import make_camera
@@ -157,10 +158,10 @@ def test_fused_bounce_passes_dead_lanes_through(boxfield60):
     state, rid = cmk.camera_pool(cms, cam, 16, 8, 1, seed=5, n_pool=4096)
     state[cmk.ALIVE, ::3] = 0.0
     before = state.clone()
-    launches = cmk.LAUNCHES
+    launches = _build.LAUNCHES["mcpt_fused_bounce"]
     segs = cmk.fused_bounce(cms, state, rid, 5, 0, max_depth=4, nee=True,
                             mis=True, rr=True)
-    assert cmk.LAUNCHES == launches
+    assert _build.LAUNCHES["mcpt_fused_bounce"] == launches
     dead = before[cmk.ALIVE] == 0.0
     assert torch.equal(state[:, dead], before[:, dead])
     assert float(segs[dead].abs().sum()) == 0.0
@@ -181,7 +182,7 @@ def test_stage_dispatchers_take_the_plain_version_on_cpu():
     plain versions, bit for bit, with no kernel launch; other devices
     raise."""
     state, rid = _pool()
-    launches = cmk.HYBRID_STAGE_LAUNCHES
+    launches = _build.LAUNCHES.copy()
     a, b = state.clone(), state.clone()
     cmk.roulette(a, rid, 7, 2, 1000.0)
     cmk._roulette(b, rid, 7, 2, 1000.0)
@@ -197,7 +198,7 @@ def test_stage_dispatchers_take_the_plain_version_on_cpu():
     for x, y in zip(got[:2] + got[2] + got[3:], want[:2] + want[2]
                     + want[3:]):
         assert torch.equal(x, y)
-    assert cmk.HYBRID_STAGE_LAUNCHES == launches
+    assert _build.LAUNCHES == launches
     meta = torch.empty((16, 128), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         cmk.roulette(meta, rid[:128], 7, 2, 10.0)

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from mcpt_torch import convert, rng
+from mcpt_torch.kernels import _build
 
 SEEDS = [0, 1, 1234, 7919, 2**31 - 1]
 
@@ -60,9 +61,9 @@ def test_draws_refuse_other_devices(fn):
 def test_plain_draws_never_count_launches():
     """CPU draws run the plain version, inside the plain context or not,
     and count no kernel launch."""
-    before = rng.LAUNCHES
+    before = _build.LAUNCHES["mcpt_threefry"]
     a = rng.uniform(rng.key(3), (257, 3), "cpu")
-    with rng.plain_version_on_cuda():
+    with _build.plain_versions():
         b = rng.uniform(rng.key(3), (257, 3), "cpu")
-    assert rng.LAUNCHES == before and not rng._PLAIN_ON_CUDA
+    assert _build.LAUNCHES["mcpt_threefry"] == before and not _build._PLAIN
     assert torch.equal(a, b)
