@@ -84,7 +84,9 @@ sharded engines of kernels 1-4 against one device, stream-exact (2x2 and
 config 9 at its own size and mesh runs ``render_cli`` on 8 ranks under
 ``torchrun`` (this script with ``--cli-rank``, which records each rank's
 launches), held against one process rendering the same steps within the
-noise of its spp.
+noise of its spp.  Phase 23, the hybrid's raygen kernel against its plain
+version at config 8's pool and at config 9's 1080p frame (a rank of the
+four-card samples mesh), bit for bit and timed beside its bound.
 
 Phases 11, 13 and 14 also print each walking kernel's ptxas report, its
 stack (entries and shared memory a block), its resident blocks an SM, its
@@ -465,6 +467,7 @@ def run() -> dict:
     report.update(run_threefry(card))
     report.update(run_tools(card))
     report.update(run_sharded(card))
+    report["raygen"] = run_raygen(card)
     return report
 
 
@@ -769,6 +772,99 @@ def hybrid_stage_report(cms, state, rid, seed, key_mode, card,
             same, 8 * n + 68 * keep * 2 + 20 * tail + 16 * tail)
     for k, v in saved.items():  # not main-path launches
         _build.LAUNCHES[k] = v
+    return rows
+
+
+def run_raygen(card, reps: int = 20) -> dict:
+    """Phase 23: the hybrid's raygen kernel (``mcpt_hybrid_raygen`` in
+    ``csrc/hybrid_stage.cu``) against ``camera_pool_reference`` at the
+    first pool of config 8's step (1280x720, 4 spp: 3,686,400 lanes) and of
+    a rank of ``diningroom1080-mesh4`` (config 9's 1080p frame, every pixel
+    at sample base 1: 2,076,672 lanes): every plane and id bit for bit;
+    the call's time by CUDA events (the kernel's over ``reps`` calls, the
+    plain version's over 3), the kernel's own (``torch.profiler`` device
+    time) and the call's on the host's clock with a synchronise;
+    the bytes that bound it at 3.35 TB/s (the 16 planes and the ids it
+    writes); the plain version's device kernels, copies and host waits a
+    call (``torch.profiler``).  Alone: ``chip_smoke.run_raygen(
+    chip_smoke.smi())`` from a script at the root of a checkout."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcpt_torch.kernels import _build
+    from mcpt_torch.kernels import cluster_megakernel as cmk
+
+    t_phase = time.perf_counter()
+    phase(23, "the hybrid's raygen kernel vs its plain version at config "
+              "8's pool and config 9's 1080p shard (CUDA events)")
+    dev = torch.device("cuda")
+    saved = _build.LAUNCHES["mcpt_hybrid_raygen"]
+    rows = {}
+    cms = None
+    for label, cid, spp, base in (("config 8 pool", 8, 4, 0),
+                                  ("config 9 1080p shard", 9, 1, 1)):
+        _, scene, lights, cam, w, h = config_scene(cid, dev)
+        if cms is None:  # configs 8 and 9 render the same room
+            cms = cmk.build_cluster_megascene(scene, lights)
+        perm = cmk.tile_pixels(w, h, dev)[0]
+        n_rays = w * h * spp
+        n_pool = -(-n_rays // cmk.BLKT) * cmk.BLKT
+        args = (cms, cam, w, h, spp, 2**31 + 11, n_pool, perm, base)
+        got = cmk.camera_pool(*args)
+        want = cmk.camera_pool_reference(*args)
+        same = (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1]))
+        # two pools alive at once, so the allocator's cache holds both
+        # outputs of cuda_ms's loop before it starts: no cudaMalloc inside
+        warm = [cmk.camera_pool(*args) for _ in range(2)]
+        del warm
+        k_ms, _ = cuda_ms(lambda: cmk.camera_pool(*args), reps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                cmk.camera_pool(*args)
+            torch.cuda.synchronize()
+        dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if "raygen_kernel" in e.name) / reps / 1e3
+        p_ms, _ = cuda_ms(lambda: cmk.camera_pool_reference(*args), 3)
+        walls = []
+        for fn in (cmk.camera_pool, cmk.camera_pool_reference):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cmk.camera_pool_reference(*args)
+            torch.cuda.synchronize()
+        ev = prof.events()
+        on_card = [e.name for e in ev if e.device_type == DeviceType.CUDA]
+        copies = sum("Memcpy" in n for n in on_card)
+        waits = sum(e.name in ("cudaStreamSynchronize", "cudaMemcpy")
+                    or e.name == "aten::_local_scalar_dense" for e in ev
+                    if e.device_type == DeviceType.CPU)
+        moved = nbytes(*got)
+        b_ms = moved / H100_BYTES_PER_S * 1e3
+        rows[label] = dict(lanes=n_pool, ms=k_ms, kernel_ms=dev_ms,
+                           plain_ms=p_ms,
+                           wall_ms=walls[0], plain_wall_ms=walls[1],
+                           bound_ms=b_ms, plain_launches=len(on_card) - copies,
+                           plain_copies=copies, plain_waits=waits, same=same)
+        print(f"  {label}: {n_rays} rays in {n_pool} lanes; kernel "
+              f"{k_ms:.4f} ms a call (the profiler: raygen_kernel "
+              f"{dev_ms:.4f} ms, {b_ms / dev_ms:.1%} of the {b_ms:.4f}-ms "
+              f"bound, {moved / 1e6:.1f} MB; target 0.15 ms at config 8), "
+              f"host wall {walls[0]:.3f} ms; plain {p_ms:.3f} ms, host wall "
+              f"{walls[1]:.3f} ms, {len(on_card) - copies} kernels, "
+              f"{copies} copies, {waits} host waits a call; bit-equal "
+              f"{same} | {card}")
+        if not same:
+            raise AssertionError(f"{label}: the raygen kernel disagrees "
+                                 "with camera_pool_reference")
+        del got, want
+    _build.LAUNCHES["mcpt_hybrid_raygen"] = saved  # not main-path launches
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
     return rows
 
 

@@ -1,6 +1,7 @@
-// The hybrid engine's between-bounce stage for Hopper: the Bernoulli
-// roulette to a live cap, the coherence sort's keys, and the reorder of the
-// pool by the sorted keys (the kept prefix and the dropped tail).
+// The hybrid engine's stages around its bounces for Hopper: the step's first
+// pool of camera rays, and between two bounces the Bernoulli roulette to a
+// live cap, the coherence sort's keys, and the reorder of the pool by the
+// sorted keys (the kept prefix and the dropped tail).
 //
 // Not a TPU kernel: mcpt runs these stages through XLA (_render_hybrid_jit
 // in mcpt/pallas/cluster_megakernel.py: _hybrid_sort_key, lax.sort, the
@@ -12,6 +13,10 @@
 // than the card to run, with three pageable host-to-device copies (and their
 // stream synchronisations) in every roulette: on the H100 the card idled
 // ~15 ms of a ~38-ms dining-room step in these two stages (PERF.md §5).
+// The raygen's plain version (camera_pool_reference; _xla_camera_rays in
+// mcpt) reads the camera table back to the host, uploads scalars and hashes
+// the RNG streams in int64 tensors: ~180 ops and 4-5 ms of an idle card at
+// the start of every step.
 //
 // Each kernel computes its plain version's arithmetic bit for bit: the same
 // float32 operations in the same order (built with -fmad=false, as every
@@ -20,7 +25,9 @@
 // live count stays on the card between the count and the roulette, and the
 // tail's NaN canary is written into the segment count on the card.
 //
-// Bound at config 8's full pool (N = 3,686,400 lanes, 3.35 TB/s): the keys
+// Bound at config 8's full pool (N = 3,686,400 lanes, 3.35 TB/s): the
+// raygen writes the 16 planes and the ids (251 MB, 0.075 ms) and reads the
+// 7.4-MB pixel order once a sample; the keys
 // read 7 planes (103 MB) and write 15 MB; the reorder reads at least the 16
 // planes and the ids of every lane (251 MB) and writes as much; the roulette
 // reads the alive plane twice, the ids and the throughput (74 MB) and
@@ -65,6 +72,62 @@ inline unsigned stage_blocks(long long n) {
 // torch.clamp on float: NaN passes through
 __device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
   return v != v ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// camera_pool_reference: lane i < n_rays is sample i / n_px of pixel
+// perm[i % n_px], RNG stream (sample_base + sample)·W·H + pixel mod 2^32 (its
+// id), cam_ray's ray with throughput 1 and alive 1; a pad lane has direction
+// (1, 0, 0) and id (sample_base + spp)·W·H + (i - n_rays) mod 2^32; every
+// other plane is 0.  cam: 0:3 position, 3:6 forward, 6:9 right, 9:12 up, 12
+// half_w, 13 half_h, 14 is_ortho (the sf slots cam_ray reads).  Each thread
+// writes its lane of all 16 planes and its id, so every store is coalesced.
+// At config 8's pool it took 0.107 ms, 70% of its bound; two or four lanes
+// a thread with vector stores took 0.100 / 0.101 ms (PERF.md §6).
+__global__ void __launch_bounds__(kStageBlock)
+    raygen_kernel(const float* __restrict__ cam,
+                  const long long* __restrict__ perm, int n_px, int n_rays,
+                  int n_pool, int width, int height, uint32_t seed,
+                  long long sample_base, int spp, float* __restrict__ state,
+                  int* __restrict__ rid) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_pool) return;
+  // the ids mod 2^32, in uint32_t arithmetic
+  const uint32_t total = static_cast<uint32_t>(width) * height;
+  const uint32_t base = static_cast<uint32_t>(sample_base);
+  float v[kPlanes];
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p) v[p] = 0.0f;
+  uint32_t id;
+  if (i < n_rays) {
+    const int s = i / n_px;
+    const int px = static_cast<int>(perm[i - s * n_px]);
+    id = (base + s) * total + px;
+    float sf[18];
+#pragma unroll
+    for (int j = 0; j < 14; ++j) sf[j] = cam[j];
+    sf[17] = cam[14];
+    Params prm{};
+    prm.width = width;
+    prm.height = height;
+    prm.seed = seed;
+    PathState ray;
+    cam_ray(sf, prm, static_cast<float>(px % width),
+            static_cast<float>(px / width), id, ray);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      v[j] = ray.o[j];
+      v[3 + j] = ray.d[j];
+      v[kThroughput + j] = 1.0f;
+    }
+    v[kAlive] = 1.0f;
+  } else {
+    id = (base + spp) * total + (i - n_rays);
+    v[3] = 1.0f;
+  }
+  const size_t ns = static_cast<size_t>(n_pool);
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p) state[p * ns + i] = v[p];
+  rid[i] = static_cast<int>(id);
 }
 
 // *count += the lanes with alive > 0 (the caller zeroes it)
@@ -219,6 +282,23 @@ __global__ void __launch_bounds__(kStageBlock)
 }  // namespace mcpt
 
 extern "C" {
+
+// The hybrid's first pool on `stream`: the (16, n_pool) state and the
+// (n_pool,) ids of spp samples of the n_px pixels `perm` (int64 pixel ids)
+// from the camera `cam` (15 floats on the card, raygen_kernel's layout), the
+// seed and the sample base by value.  Returns the cudaError_t of the launch
+// (0 on success; nothing is launched for n_pool = 0).
+int mcpt_hybrid_raygen(const float* cam, const long long* perm, int n_px,
+                       int n_rays, int n_pool, int width, int height,
+                       unsigned seed, long long sample_base, int spp,
+                       float* state, int* rid, void* stream) {
+  if (n_pool <= 0) return 0;
+  mcpt::raygen_kernel<<<mcpt::stage_blocks(n_pool), mcpt::kStageBlock, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      cam, perm, n_px, n_rays, n_pool, width, height, seed, sample_base, spp,
+      state, rid);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The roulette over the (16, n) state on `stream`: count the live lanes
 // into `count` (one device int of scratch), then select and rescale, with

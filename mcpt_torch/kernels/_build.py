@@ -191,8 +191,11 @@ def load(flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
     lib.mcpt_hybrid_sort_key.argtypes = ([ptr] * 7 + [i32] + [f32] * 6
                                          + [i32] * 2 + [ptr, ptr])
     lib.mcpt_hybrid_reorder.argtypes = [ptr] * 3 + [i32] * 2 + [ptr] * 6
+    lib.mcpt_hybrid_raygen.argtypes = ([ptr] * 2 + [i32] * 5
+                                       + [u32, ctypes.c_longlong, i32]
+                                       + [ptr] * 3)
     for fn in (lib.mcpt_hybrid_roulette, lib.mcpt_hybrid_sort_key,
-               lib.mcpt_hybrid_reorder):
+               lib.mcpt_hybrid_reorder, lib.mcpt_hybrid_raygen):
         fn.restype = i32
     lib.mcpt_error_string.argtypes = [i32]
     lib.mcpt_error_string.restype = ctypes.c_char_p

@@ -27,10 +27,11 @@ of every pixel as a flat pool of rays, one lane per (sample, pixel), and runs
   kernel is ``mcpt_torch/csrc/cluster_mega.cu``;
 - the pipeline around it: camera rays, sort keys, the compaction schedule,
   ``render_hybrid``, each stage a ``trace.span`` (``mcpt.hybrid.*``).  The
-  stages between two bounces (``roulette``, ``sort_key`` and ``reorder``
-  around ``torch.sort``) dispatch as ``fused_bounce`` does: their plain
-  versions for CPU tensors, the hand-written kernels of
-  ``mcpt_torch/csrc/hybrid_stage.cu`` for CUDA tensors.
+  step's first pool (``camera_pool``) and the stages between two bounces
+  (``roulette``, ``sort_key`` and ``reorder`` around ``torch.sort``)
+  dispatch as ``fused_bounce`` does: their plain versions for CPU tensors,
+  the hand-written kernels of ``mcpt_torch/csrc/hybrid_stage.cu`` for CUDA
+  tensors.
 
 The state is one (16, N) float32 tensor, a plane per row (``PLANES``), and
 an int32 RNG id per lane (the (sample, pixel) stream, which rides every sort,
@@ -549,7 +550,20 @@ def render_cluster_mega(cms: ClusterMegaScene, cam: T.Camera, width: int,
 def camera_pool(cms: ClusterMegaScene, cam: T.Camera, width: int,
                 height: int, spp: int, seed, n_pool: int, perm=None,
                 sample_base: int = 0):
-    """The step's flat pool → ((16, n_pool) state, (n_pool,) int32 rid).
+    """The step's flat pool → ((16, n_pool) state, (n_pool,) int32 rid):
+    ``camera_pool_reference`` for CPU tables, the raygen kernel of
+    ``csrc/hybrid_stage.cu`` for CUDA tables (or raise)."""
+    args = (cms, cam, width, height, spp, seed, n_pool, perm, sample_base)
+    if _build.use_kernel("camera_pool", cms.wnodes):
+        return _camera_pool_cuda(*args)
+    return camera_pool_reference(*args)
+
+
+def camera_pool_reference(cms: ClusterMegaScene, cam: T.Camera, width: int,
+                          height: int, spp: int, seed, n_pool: int,
+                          perm=None, sample_base: int = 0):
+    """The plain version of ``camera_pool`` → ((16, n_pool) state,
+    (n_pool,) int32 rid).
 
     Sample-major lanes over the pixels ``perm`` (default: every pixel in
     tile order; ``_xla_camera_rays``: the dense megakernel's ``cam_ray``
@@ -584,6 +598,40 @@ def camera_pool(cms: ClusterMegaScene, cam: T.Camera, width: int,
     pad = (sample_base + spp) * total + torch.arange(n_pool - n_rays,
                                                       device=dev)
     rid = torch.cat([idx, pad]).to(torch.int32)
+    return state, rid
+
+
+def _camera_pool_cuda(cms, cam, width, height, spp, seed, n_pool, perm=None,
+                      sample_base=0):
+    """``camera_pool_reference`` through ``csrc/hybrid_stage.cu``, one pass
+    that writes every plane and id.  The camera stays on the card (one
+    ``torch.cat`` of its tensors, made anew each call, so a moved camera
+    renders from its new values) and the scalars go by value: nothing is
+    copied between host and card, nothing waits."""
+    dev = cms.wnodes.device
+    if perm is None:
+        perm = tile_pixels(width, height, dev)[0]
+    if perm.device != dev or perm.dim() != 1:
+        raise ValueError(f"perm must be a 1-d tensor on {dev}")
+    perm = perm.to(torch.int64).contiguous()
+    n_px = perm.numel()
+    n_rays = n_px * spp
+    if not n_rays <= n_pool < 2**31:
+        raise ValueError(f"n_pool must hold the {n_rays} rays and stay "
+                         f"below 2**31, got {n_pool}")
+    camv = torch.cat([cam.position.reshape(3), cam.forward.reshape(3),
+                      cam.right.reshape(3), cam.up.reshape(3),
+                      cam.half_width.reshape(1), cam.half_height.reshape(1),
+                      cam.is_ortho.reshape(1)]).to(torch.float32)
+    if camv.device != dev:
+        raise ValueError(f"camera on {camv.device}, tables on {dev}")
+    state = torch.empty((len(PLANES), n_pool), dtype=torch.float32,
+                        device=dev)
+    rid = torch.empty(n_pool, dtype=torch.int32, device=dev)
+    _build.launch("mcpt_hybrid_raygen", dev, camv.data_ptr(),
+                  perm.data_ptr(), n_px, n_rays, n_pool, width, height,
+                  int(seed) & _M32, int(sample_base), spp, state.data_ptr(),
+                  rid.data_ptr())
     return state, rid
 
 

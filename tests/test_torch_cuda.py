@@ -260,8 +260,9 @@ def test_render_hybrid_kernel_matches_plain_pipeline(cuda):
     """Kernel 2 and the between-bounce kernels together against the
     all-plain pipeline (plain bounce, plain stages), bit for bit.  At 8 spp
     the pool (8192 lanes) shrinks to 4096 after bounce 0, through the
-    roulette kernels and a tail: one roulette call a shrink, one key and
-    one reorder call a re-sort; the plain pipeline calls none."""
+    roulette kernels and a tail: one raygen call a render, one roulette
+    call a shrink, one key and one reorder call a re-sort; the plain
+    pipeline calls none."""
     cmk, cms, cam, _, _ = _hybrid_setup(cuda)
     for spp, kw in ((4, dict(key_mode="cell")),
                     (8, dict(key_mode="dir6", compact=(0.5, 0.3, 0.3)))):
@@ -273,8 +274,9 @@ def test_render_hybrid_kernel_matches_plain_pipeline(cuda):
         assert shrinks == (1 if "compact" in kw else 0)
         before = _build.LAUNCHES.copy()
         want = collections.Counter(
-            mcpt_fused_bounce=4, mcpt_hybrid_roulette=shrinks,
-            mcpt_hybrid_sort_key=3, mcpt_hybrid_reorder=3)
+            mcpt_hybrid_raygen=1, mcpt_fused_bounce=4,
+            mcpt_hybrid_roulette=shrinks, mcpt_hybrid_sort_key=3,
+            mcpt_hybrid_reorder=3)
         a, sa = cmk.render_hybrid(cms, cam, 32, 24, **kw)
         assert _build.LAUNCHES - before == want
         b, sb = cmk.render_hybrid_reference(cms, cam, 32, 24, **kw)
@@ -460,6 +462,80 @@ def test_hybrid_stage_wrapper_refusals(cuda):
         cmk.reorder(state, rid, order, n, total.float())
     with pytest.raises(ValueError, match="rid"):
         cmk.reorder(state, rid[:-1], order, n, total)
+
+
+def _host_copies(fn):
+    """fn() inside ``mcpt.hybrid.raygen`` under ``torch.profiler`` over the
+    host and the card → (its result, the names of every event)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcpt_torch.trace import span
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with span("mcpt.hybrid.raygen"):
+            out = fn()
+    torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()]
+
+
+@pytest.mark.parametrize("case", ["tile order", "shard"])
+@pytest.mark.parametrize("spp", [1, 3])
+def test_camera_pool_kernel_matches_plain_version(cuda, case, spp):
+    """The raygen kernel against ``camera_pool_reference`` on boxfield(60),
+    every plane and every id bit for bit, pad lanes included (the pool
+    holds more lanes than rays): the whole tile order at sample base 0, and
+    a shard's slice of it (starting mid-tile) at a sample base whose ids
+    pass 2³¹, so both the stream counter and the int32 id wrap.  One call
+    is one launch; under the profiler it copies nothing between host and
+    card, waits on nothing and opens no ``mcpt.wait.sf``, where the plain
+    version does all three."""
+    w, h = 96, 40  # past 64 pixels wide the tile order is no identity
+    cmk, cms, cam, _, _ = _hybrid_setup(cuda, w, h, spp=1)
+    if case == "tile order":
+        perm, base, n_px = None, 0, w * h
+    else:
+        perm, base = cmk.tile_pixels(w, h, cuda)[0][1000:2500], 2**22 + 3
+        n_px = 1500
+        assert (base + spp) * w * h > 2**31
+    n_rays = n_px * spp
+    n_pool = -(-n_rays // cmk.BLKT) * cmk.BLKT
+    assert n_pool > n_rays
+    args = (cms, cam, w, h, spp, 2**33 + 7, n_pool, perm, base)
+    before = _build.LAUNCHES["mcpt_hybrid_raygen"]
+    (state, rid), names = _host_copies(lambda: cmk.camera_pool(*args))
+    assert _build.LAUNCHES["mcpt_hybrid_raygen"] == before + 1
+    with _build.plain_versions():
+        (want, want_rid), plain_names = _host_copies(
+            lambda: cmk.camera_pool(*args))
+    assert _build.LAUNCHES["mcpt_hybrid_raygen"] == before + 1
+    assert state.shape == want.shape == (16, n_pool)
+    assert rid.dtype == want_rid.dtype == torch.int32
+    for plane in range(16):
+        assert torch.equal(state[plane], want[plane]), plane
+    assert torch.equal(rid, want_rid)
+    assert float(state[cmk.ALIVE].sum()) == n_rays
+    if case == "shard":
+        assert bool((rid < 0).any())
+    busy = [n for n in names if "Memcpy" in n or "StreamSynchronize" in n
+            or n in ("aten::_local_scalar_dense", "mcpt.wait.sf")]
+    assert busy == [] and "mcpt.hybrid.raygen" in names
+    assert any("Memcpy DtoH" in n for n in plain_names)
+    assert "mcpt.wait.sf" in plain_names
+
+
+def test_camera_pool_wrapper_refusals(cuda):
+    cmk, cms, cam, _, _ = _hybrid_setup(cuda)
+    perm = cmk.tile_pixels(32, 24, cuda)[0]
+    cpu_cam = cam._replace(**{f: getattr(cam, f).cpu() for f in cam._fields})
+    with pytest.raises(ValueError, match="camera on cpu"):
+        cmk.camera_pool(cms, cpu_cam, 32, 24, 1, 0, 4096)
+    with pytest.raises(ValueError, match="perm"):
+        cmk.camera_pool(cms, cam, 32, 24, 1, 0, 4096, perm.cpu())
+    with pytest.raises(ValueError, match="perm"):
+        cmk.camera_pool(cms, cam, 32, 24, 1, 0, 4096, perm[None])
+    with pytest.raises(ValueError, match="n_pool"):
+        cmk.camera_pool(cms, cam, 32, 24, 8, 0, 4096)
 
 
 # --------------------------------------------------------------------------
@@ -976,7 +1052,8 @@ def test_engine_spans_on_the_card(cuda, engine):
 
         def render():
             return cmk.render_hybrid(cms, cam, 32, 24, **kw)
-        want = {"mcpt.hybrid.raygen": 1, "mcpt.wait.sf": 1,
+        # the raygen kernel reads the camera on the card: no mcpt.wait.sf
+        want = {"mcpt.hybrid.raygen": 1,
                 "mcpt.hybrid.bounce": 4, "mcpt.wait.k2_flag": 4,
                 "mcpt.hybrid.sort": 3, "mcpt.hybrid.reduce": 1}
         launcher = "mcpt.hybrid.bounce"

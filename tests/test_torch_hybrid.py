@@ -208,6 +208,34 @@ def test_stage_dispatchers_take_the_plain_version_on_cpu():
         cmk.reorder(meta, rid[:128], order[:128], 128, total)
 
 
+@pytest.mark.parametrize("shard", [False, True])
+def test_camera_pool_takes_the_plain_version_on_cpu(boxfield60, shard):
+    """On CPU tables ``camera_pool`` is ``camera_pool_reference``, every
+    plane and id, with no kernel launch; the pad lanes are dead with
+    direction (1, 0, 0) and ids counting on from (sample_base + spp)·W·H,
+    wrapped to int32 (a shard at a sample base past 2³¹ / (W·H))."""
+    cms, camcfg = boxfield60
+    w, h, spp = 16, 8, 2
+    cam = make_camera(dataclasses.replace(camcfg, resolution=(w, h)),
+                      device="cpu")
+    perm, base = ((cmk.tile_pixels(w, h, "cpu")[0][20:100], 2**24 + 5)
+                  if shard else (None, 0))
+    n_rays = (80 if shard else w * h) * spp
+    launches = _build.LAUNCHES.copy()
+    state, rid = cmk.camera_pool(cms, cam, w, h, spp, 9, 512, perm, base)
+    assert _build.LAUNCHES == launches
+    want, want_rid = cmk.camera_pool_reference(cms, cam, w, h, spp, 9, 512,
+                                               perm, base)
+    assert torch.equal(state, want) and torch.equal(rid, want_rid)
+    pad = torch.zeros((16, 512 - n_rays))
+    pad[3] = 1.0
+    assert torch.equal(state[:, n_rays:], pad)
+    ids = (base + spp) * w * h + torch.arange(512 - n_rays)
+    assert torch.equal(rid[n_rays:], ids.to(torch.int32))
+    assert bool((rid[n_rays:] < 0).all()) == shard
+    assert torch.equal(state[cmk.ALIVE, :n_rays], torch.ones(n_rays))
+
+
 @pytest.mark.parametrize("keep,canary", [(4096, False), (2560, False),
                                          (1024, True)])
 def test_reorder_drops_the_tail_and_raises_the_canary(keep, canary):

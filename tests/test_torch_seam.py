@@ -58,6 +58,8 @@ DISPATCHERS = {
     "render_cluster_mega": lambda i, dev: cmk.render_cluster_mega(
         i.cms._replace(wnodes=i.cms.wnodes.to(dev)), i.cam, 4, 4, spp=1,
         seed=0, max_depth=2),
+    "camera_pool": lambda i, dev: cmk.camera_pool(
+        i.cms._replace(wnodes=i.cms.wnodes.to(dev)), i.cam, 4, 4, 1, 3, 128),
     "roulette": lambda i, dev: cmk.roulette(
         i.state.clone().to(dev), i.rid, 7, 2, 8.0),
     "sort_key": lambda i, dev: cmk.sort_key(
