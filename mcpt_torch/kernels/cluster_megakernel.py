@@ -58,7 +58,7 @@ from mcpt_torch.bvh.cluster import STACK_CAP, stack_entries
 from mcpt_torch.bvh.lbvh import morton30, one_thread
 from mcpt_torch.kernels import _build
 from mcpt_torch.kernels import megakernel as mk
-from mcpt_torch.trace import span
+from mcpt_torch.trace import count, span
 
 SUBT = 32  # pool rows are a multiple of SUBT (mcpt's ray-block height)
 BLKT = SUBT * 128  # pool quantum, and the pixel-tile size of tile_order
@@ -847,9 +847,10 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
     ascending pixel id order, as ``mcpt``'s final reduce leaves them.
 
     Each stage is a span (``mcpt.hybrid.raygen``, ``.bounce``,
-    ``.roulette``, ``.sort``, ``.reduce``); ``live`` (a list) receives the
-    live share of the pool after each bounce but the last (the pilot's
-    measurement)."""
+    ``.roulette``, ``.sort``, ``.reduce``), and each bounce counts the
+    lanes kernel 2 is launched over (``mcpt.count.k2_lanes``, the pool's
+    rows × 128); ``live`` (a list) receives the live share of the pool
+    after each bounce but the last (the pilot's measurement)."""
     key_mode = resolve_key_mode(key_mode, compact)
     dev = cms.wnodes.device
     n_px = width * height if perm is None else perm.numel()
@@ -864,6 +865,7 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
     tails = []  # dropped (rid, radiance) of compacted-away lanes
     for d in range(max_depth):
         with span("mcpt.hybrid.bounce"):
+            count("k2_lanes", rows_at[d] * 128)
             segs = fused_bounce(cms, state, rid, seed, d, max_depth, rr,
                                 rr_start, nee, mis, clamp, t_min)
             segs_total = segs_total + segs.to(torch.float64).sum()

@@ -17,8 +17,10 @@ as device work.
 
 Every name starts with ``mcpt.``.  ``mcpt.wait.<site>`` marks a read that
 blocks the host until the card has caught up, so the number of those spans
-in a trace is the number of host waits, by site.  ``report`` is what
-``render_cli --profile`` prints.
+in a trace is the number of host waits, by site.  ``count(name, n)`` leaves
+a value in the trace the same way: an empty range named
+``mcpt.count.<name>=<n>``, with no sync and no read of the card.
+``report`` is what ``render_cli --profile`` prints.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import functools
 import torch
 
 _OFF = contextlib.nullcontext()
+COUNT_PREFIX = "mcpt.count."
 _recording = torch._C._autograd._profiler_enabled
 _range = torch._C._profiler._RecordFunctionFast
 
@@ -39,6 +42,23 @@ def span(name: str):
     if not _recording():
         return _OFF
     return _range(name)
+
+
+def count(name: str, n: int) -> None:
+    """While a profiler records, an empty range ``mcpt.count.<name>=<n>``:
+    the value ``n`` of counter ``name`` at this point of the host's run;
+    else nothing."""
+    if _recording():
+        with _range(f"{COUNT_PREFIX}{name}={int(n)}"):
+            pass
+
+
+def counted(span_name: str):
+    """``(counter, value)`` of a range ``count`` left, else None."""
+    if not span_name.startswith(COUNT_PREFIX):
+        return None
+    counter, _, value = span_name.partition("=")
+    return counter, int(value)
 
 
 def spanned(name: str):
@@ -71,12 +91,16 @@ def report(prof, steps: int) -> str:
     trace's host extent."""
     from torch.autograd import DeviceType
 
-    host, device, spans = [], [], []
+    host, device, spans, counters = [], [], [], {}
     for e in prof.events():
         s, t = e.time_range.start, e.time_range.end
         if e.device_type == DeviceType.CPU:
             host.append((s, t))
-            if e.name.startswith("mcpt."):
+            if c := counted(e.name):
+                row = counters.setdefault(c[0], [0, 0])
+                row[0] += 1
+                row[1] += c[1]
+            elif e.name.startswith("mcpt."):
                 spans.append((s, t, e.name, e.device_time_total))
         elif not e.is_user_annotation:
             device.append((s, t))
@@ -106,7 +130,7 @@ def report(prof, steps: int) -> str:
         lines.append(f"card busy {busy_us / (hi - lo):.1%} of "
                      f"{(hi - lo) / 1e3:.3f} ms; idle outside mcpt spans "
                      f"{outside / 1e3 / steps:.3f} ms a step")
-    width = max((len(n) for n in rows), default=4)
+    width = max((len(n) for n in [*rows, *counters]), default=4)
     lines.append(f"{'span':<{width}}  calls/step  host ms/step  "
                  f"device ms/step" + ("  idle ms/step" if busy else ""))
     for name, (n, h, d, idle) in sorted(rows.items(),
@@ -114,4 +138,7 @@ def report(prof, steps: int) -> str:
         lines.append(f"{name:<{width}}  {n / steps:10.2f}  "
                      f"{h / 1e3 / steps:12.3f}  {d / 1e3 / steps:14.3f}"
                      + (f"  {idle / 1e3 / steps:12.3f}" if busy else ""))
+    for name, (n, total) in sorted(counters.items()):
+        lines.append(f"{name:<{width}}  {n / steps:10.2f}  value/step "
+                     f"{total / steps:.1f}")
     return "\n".join(lines)

@@ -1052,10 +1052,12 @@ def test_engine_spans_on_the_card(cuda, engine):
 
         def render():
             return cmk.render_hybrid(cms, cam, 32, 24, **kw)
-        # the raygen kernel reads the camera on the card: no mcpt.wait.sf
+        # the raygen kernel reads the camera on the card: no mcpt.wait.sf;
+        # each bounce counts its pool's lanes (one quantum, 32 rows of 128)
         want = {"mcpt.hybrid.raygen": 1,
                 "mcpt.hybrid.bounce": 4, "mcpt.wait.k2_flag": 4,
-                "mcpt.hybrid.sort": 3, "mcpt.hybrid.reduce": 1}
+                "mcpt.hybrid.sort": 3, "mcpt.hybrid.reduce": 1,
+                "mcpt.count.k2_lanes=4096": 4}
         launcher = "mcpt.hybrid.bounce"
     a, sa = render()
     (b, sb), counts, spans, echoes = _profiled_on_card(render)

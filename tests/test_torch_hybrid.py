@@ -300,7 +300,7 @@ def test_profile_hybrid_gives_render_hybrids_bits(boxfield60):
     """Profiled (``torch.profiler``, whose ranges are the stages' spans),
     the hybrid gives the same bits, and each stage is a span: a bounce a
     depth, a sort a depth but the last, a roulette where the pool
-    shrinks."""
+    shrinks; each bounce counts its pool's lanes (64 rows, then 32)."""
     from torch.profiler import ProfilerActivity, profile
 
     cms, camcfg = boxfield60
@@ -316,4 +316,5 @@ def test_profile_hybrid_gives_render_hybrids_bits(boxfield60):
     assert {n: names.count(n) for n in set(names)} == {
         "mcpt.hybrid.raygen": 1, "mcpt.wait.sf": 1, "mcpt.hybrid.bounce": 3,
         "mcpt.hybrid.roulette": 1, "mcpt.hybrid.sort": 2,
-        "mcpt.hybrid.reduce": 1}
+        "mcpt.hybrid.reduce": 1, "mcpt.count.k2_lanes=8192": 1,
+        "mcpt.count.k2_lanes=4096": 2}

@@ -85,6 +85,37 @@ def test_span_records_a_function_scope_range_under_the_profiler():
                if e.name == "aten::add")
 
 
+def test_count_records_nothing_outside_a_profiler(monkeypatch):
+    calls = []
+    monkeypatch.setattr(trace, "_range", lambda name: calls.append(name))
+    assert not torch._C._autograd._profiler_enabled()
+    for n in range(1000):
+        trace.count("k2_lanes", n)
+    assert calls == []
+
+
+def test_hybrid_counts_k2_lanes_a_bounce(boxfield60):
+    """Under the profiler a CPU hybrid render leaves one
+    ``mcpt.count.k2_lanes`` value a bounce, inside the bounce's span, each
+    the rows of that bounce's pool × 128: 64 rows, then 32 under the caps
+    (4,608 lanes a sample pass of 16×12 at 24 spp)."""
+    scene, lights, cam = boxfield60
+    cms = cmk.build_cluster_megascene(scene, lights)
+    (_, _), counts, events = _profiled(lambda: cmk._run_hybrid(
+        cms, cam, 16, 12, 24, 5, max_depth=4, rr=True, rr_start=1,
+        compact=(0.3, 0.2)))
+    rows = cmk._compaction_schedule(-(-16 * 12 * 24 // cmk.BLKT)
+                                    * cmk.SUBT, 4, (0.3, 0.2))
+    assert rows == [64, 32, 32, 32]
+    values = [trace.counted(e.name) for e in events
+              if trace.counted(e.name)]
+    assert values == [("mcpt.count.k2_lanes", r * 128) for r in rows]
+    assert sum(v for _, v in values) == sum(rows) * 128
+    assert all(e.cpu_parent.name == "mcpt.hybrid.bounce" for e in events
+               if trace.counted(e.name))
+    assert counts["mcpt.hybrid.bounce"] == 4
+
+
 def test_spanned_keeps_the_function():
     assert rng.uniform.__name__ == "uniform"
     a = rng.uniform(rng.key(3), (5,), "cpu")
@@ -118,14 +149,17 @@ def test_engines_give_the_same_bits_under_the_profiler(boxfield60, name):
     assert torch.equal(a, b) and float(sa) == float(sb)
     if name == "hybrid":
         # one raygen (with its camera-table wait), a bounce a depth, a sort
-        # a depth but the last, a roulette a shrinking pool, one reduce
+        # a depth but the last, a roulette a shrinking pool, one reduce,
+        # and a bounce's lanes counted a bounce
         rows = cmk._compaction_schedule(-(-16 * 12 * 2 // cmk.BLKT)
                                         * cmk.SUBT, 3, (0.3, 0.2))
         shrinks = sum(b < a for a, b in zip(rows, rows[1:]))
         assert counts == collections.Counter({
             "mcpt.hybrid.raygen": 1, "mcpt.wait.sf": 1,
             "mcpt.hybrid.bounce": 3, "mcpt.hybrid.sort": 2,
-            "mcpt.hybrid.roulette": shrinks, "mcpt.hybrid.reduce": 1})
+            "mcpt.hybrid.roulette": shrinks, "mcpt.hybrid.reduce": 1,
+            **collections.Counter(f"mcpt.count.k2_lanes={r * 128}"
+                                  for r in rows)})
     else:
         # the plain versions on the CPU record no span
         assert counts == {}
@@ -185,6 +219,37 @@ def test_report_puts_idle_down_to_the_innermost_span():
     assert rows["mcpt.hybrid.reduce"] == [0.5, 0.006, 0.0, 0.005]
     assert "card busy 52.0% of 0.100 ms" in text
     assert "idle outside mcpt spans 0.005 ms a step" in text
+
+
+def test_report_sums_a_counter_in_one_row():
+    """Two steps with the counter's empty ranges in their bounces: one row
+    with its calls and the sum of its values a step, no span row of its
+    own, and the bounce's idle as it was."""
+    events = [
+        _event("aten::empty", 0, 2),
+        _event("mcpt.hybrid.bounce", 6, 52, dev_us=20.0),
+        _event("mcpt.count.k2_lanes=3686400", 7, 7),
+        _event("mcpt.count.k2_lanes=1572864", 40, 40),
+        _event("mcpt::fused_bounce_kernel", 10, 30, device=True),
+        _event("sort", 60, 100, device=True),
+    ]
+    def rows_of(evs):
+        text = trace.report(SimpleNamespace(events=lambda: evs), steps=2)
+        return text, {line.split()[0]: line.split()[1:]
+                      for line in text.splitlines()
+                      if line.startswith("mcpt.")}
+
+    text, rows = rows_of(events)
+    assert rows["mcpt.count.k2_lanes"] == ["1.00", "value/step",
+                                           "2629632.0"]
+    # the card idles 30-52 inside the bounce: 0.011 ms a step
+    assert rows["mcpt.hybrid.bounce"] == ["0.50", "0.023", "0.010",
+                                          "0.011"]
+    assert set(rows) == {"mcpt.hybrid.bounce", "mcpt.count.k2_lanes"}
+    assert "1 mcpt spans" in text
+    uncounted = [e for e in events if not trace.counted(e.name)]
+    assert rows_of(uncounted)[1] == {"mcpt.hybrid.bounce":
+                                     rows["mcpt.hybrid.bounce"]}
 
 
 def test_cli_profile_prints_the_spans(tmp_path, capsys):
