@@ -31,7 +31,7 @@
 //     an SM; 6 and 7 blocks were slower, 10 no faster;
 //   - persistent threads: the grid is the blocks resident on the card, and
 //     a thread takes its next ray of the sorted pool from a global counter
-//     (fetch_next; the wrapper zeroes it with the error flag) as soon as it
+//     (fetch_next; the wrapper zeroes one for each launch) as soon as it
 //     is done with one.  Against one thread a ray it was 5-6% faster on the
 //     re-sorted depth-1 pool and ~5% slower on the primary one; seven of a
 //     step's eight bounces run re-sorted pools.
@@ -59,11 +59,12 @@ __global__ void __launch_bounds__(kBounceBlock, kBounceMinBlocks)
                         int depth, int max_depth, int rr, int rr_start,
                         int use_nee, int use_mis, float* __restrict__ state,
                         const int* __restrict__ rid, float* __restrict__ segs,
-                        int n, int* __restrict__ err) {
+                        int n, int* __restrict__ flag,
+                        int* __restrict__ next) {
   extern __shared__ StackEntry stack_smem[];
   const ClusterIsect isect{wnodes, tri16, live, n_wide, leaf_size,
                            stack_smem + threadIdx.x,
-                           static_cast<int>(blockDim.x), cap, err};
+                           static_cast<int>(blockDim.x), cap, flag};
   Shading sh;
   sh.matt = matt;
   sh.lit = lit;
@@ -79,7 +80,6 @@ __global__ void __launch_bounds__(kBounceBlock, kBounceMinBlocks)
   const float rr_on = (rr && depth >= rr_start) ? 1.0f : 0.0f;
   const size_t stride = static_cast<size_t>(n);
 
-  int* next = err + 1;
   for (int lane = fetch_next(next); lane < n; lane = fetch_next(next)) {
     float* p = state + lane;
     const float alive = p[12 * stride];
@@ -142,19 +142,20 @@ int mcpt_fused_bounce_blocks_per_sm(int cap) {
 }
 
 // One bounce over n lanes on `stream`.  Tables, state (16 x n floats), rid
-// (n ints), segs (n floats) and err (2 ints: the overflow flag and the lane
-// counter, zeroed by the caller) are device pointers; wnodes and tri16 must
-// be 16-byte aligned; cap: stack entries a thread.  The grid is the blocks
-// resident on the card.  Returns the cudaError_t of the launch (0 on
-// success).
+// (n ints), segs (n floats), flag (1 int, set to 1 on a stack overflow and
+// never cleared, so launches may share one) and next (1 int, the lane
+// counter, zeroed by the caller for each launch) are device pointers; wnodes
+// and tri16 must be 16-byte aligned; cap: stack entries a thread.  The grid
+// is the blocks resident on the card.  Returns the cudaError_t of the launch
+// (0 on success).
 int mcpt_fused_bounce(const float* wnodes, const float* tri16,
                       const int* live, const float* matt, const float* lit,
                       int n_wide, int leaf_size, int cap, int n_lights,
                       float eps, float t_min, float area_l, float clamp,
                       unsigned int seed, int depth, int max_depth, int rr,
                       int rr_start, int use_nee, int use_mis, float* state,
-                      const int* rid, float* segs, int n, int* err,
-                      void* stream) {
+                      const int* rid, float* segs, int n, int* flag,
+                      int* next, void* stream) {
   if (n <= 0) return 0;
   const size_t smem = mcpt::bounce_smem_bytes(cap);
   cudaError_t e = cudaFuncSetAttribute(
@@ -175,7 +176,7 @@ int mcpt_fused_bounce(const float* wnodes, const float* tri16,
                               static_cast<cudaStream_t>(stream)>>>(
       wnodes, tri16, live, matt, lit, n_wide, leaf_size, cap, n_lights, eps,
       t_min, area_l, clamp, seed, depth, max_depth, rr, rr_start, use_nee,
-      use_mis, state, rid, segs, n, err);
+      use_mis, state, rid, segs, n, flag, next);
   return static_cast<int>(cudaGetLastError());
 }
 

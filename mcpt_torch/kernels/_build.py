@@ -14,7 +14,11 @@ It is also the one seam between the kernels' Python side and the library:
 ``use_kernel`` is every dispatcher's device rule, ``plain_versions`` runs
 the plain versions on CUDA tensors, ``check_cuda`` is the wrappers' common
 tensor check, and ``launch`` calls a kernel's C entry point on the current
-stream, raises on its error code and counts it in ``LAUNCHES``.
+stream, raises on its error code and counts it in ``LAUNCHES``.  The walking
+kernels' stack-overflow flags go through it too: ``overflow_flag`` hands a
+launch its flag and ``check_overflow`` reads it back at once, or, inside an
+``overflow_checked_once`` block, leaves it to the one read at the block's
+end.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from mcpt_torch.trace import count, span
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -158,7 +164,7 @@ def load(flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
     f32 = ctypes.c_float
     lib.mcpt_fused_bounce.argtypes = (
         [ptr] * 5 + [i32] * 4 + [f32] * 4 + [ctypes.c_uint32] + [i32] * 6
-        + [ptr] * 3 + [i32] + [ptr, ptr])
+        + [ptr] * 3 + [i32] + [ptr] * 3)
     lib.mcpt_fused_bounce.restype = i32
     lib.mcpt_render_cluster.argtypes = (
         [ptr] * 5 + [i32] * 3 + [ptr] * 2 + [i32] * 5 + [ptr] + [i32]
@@ -260,3 +266,79 @@ def launch(symbol: str, device, *args, lib: ctypes.CDLL | None = None):
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} "
                            f"({lib.mcpt_error_string(rc).decode()})")
     LAUNCHES[symbol] += 1
+
+
+# the kernels whose stack-overflow flag a block may defer, by C symbol: the
+# wait span each flag is read under and the message a set flag raises
+OVERFLOW_READS = {
+    "mcpt_fused_bounce": ("mcpt.wait.k2_flag",
+                          "fused bounce: traversal stack overflow (> {cap} "
+                          "entries); collapse_wide should have rejected "
+                          "this tree"),
+    "mcpt_traverse": ("mcpt.wait.k4_flag",
+                      "traverse: stack overflow (> {cap} entries); "
+                      "collapse_wide should have rejected this tree"),
+}
+# inside overflow_checked_once(): {(device, symbol): [flag, stack entries,
+# launches]}, the one device int every launch of that kernel there sets on a
+# stack overflow
+_DEFERRED: dict | None = None
+
+
+@contextlib.contextmanager
+def overflow_checked_once():
+    """Inside this block the launches of a kernel on a device set one shared
+    stack-overflow flag instead of each reading its own back, and the
+    block's end reads each flag once, under its kernel's wait span, and
+    raises on an overflow: the host never waits on a launch in between, so
+    it queues the work around the launches while they run.  Each read
+    records ``trace.count("flags_deferred", n)``, the n launches it covers.
+    The hybrid's step (``cluster_megakernel._run_hybrid``: 8 reads become
+    one) and the wavefront's bounce loops (16) run in it.  Outside it every
+    launch reads its flag back and raises at once.  A nested block leaves
+    the reading to the outer one; an error in the body leaves the flags
+    unread."""
+    global _DEFERRED
+    if _DEFERRED is not None:
+        yield
+        return
+    _DEFERRED = {}
+    try:
+        yield
+        flags = _DEFERRED
+    finally:
+        _DEFERRED = None
+    for (_, symbol), (flag, cap, launches) in flags.items():
+        count("flags_deferred", launches)
+        _read_overflow(symbol, flag, cap)
+
+
+def overflow_flag(symbol: str, device, cap: int) -> torch.Tensor:
+    """The device int a launch of ``symbol`` on ``device`` (``cap`` stack
+    entries a thread) sets on a stack overflow: the open
+    ``overflow_checked_once`` block's for (device, symbol), counted as one
+    more launch it covers, else a fresh one."""
+    if _DEFERRED is None:
+        return torch.zeros(1, dtype=torch.int32, device=device)
+    key = (torch.device(device), symbol)
+    if key not in _DEFERRED:
+        _DEFERRED[key] = [torch.zeros(1, dtype=torch.int32, device=device),
+                          cap, 0]
+    _DEFERRED[key][2] += 1
+    return _DEFERRED[key][0]
+
+
+def check_overflow(symbol: str, flag: torch.Tensor, cap: int) -> None:
+    """After a launch of ``symbol`` with ``overflow_flag``'s ``flag``:
+    outside a block read it back now (the call synchronises) and raise on
+    an overflow; inside one leave it to the block's end."""
+    if _DEFERRED is None:
+        _read_overflow(symbol, flag, cap)
+
+
+def _read_overflow(symbol: str, flag: torch.Tensor, cap: int) -> None:
+    wait, message = OVERFLOW_READS[symbol]
+    with span(wait):
+        overflow = int(flag.item())
+    if overflow != 0:
+        raise RuntimeError(message.format(cap=cap))

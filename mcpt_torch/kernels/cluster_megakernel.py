@@ -370,7 +370,9 @@ def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
                        max_depth, rr, rr_start, nee, mis, clamp, t_min):
     """Launch ``mcpt_torch/csrc/fused_bounce.cu`` on the current stream; it
     updates ``state`` in place.  Raises on a refused launch and on the
-    kernel's stack-overflow flag (read back, so this call synchronises)."""
+    kernel's stack-overflow flag: read back at once (the call then
+    synchronises), or inside ``_build.overflow_checked_once`` (the hybrid's
+    step) at the block's end."""
     for name in ("matt", "lit"):
         _build.check_cuda(f"cms.{name}", getattr(cms, name))
     dev, n = _check_pool(state, rid)
@@ -379,8 +381,8 @@ def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
         if t.device != dev:
             raise ValueError(f"tables on {t.device}, state on {dev}")
     segs = torch.empty(n, dtype=torch.float32, device=dev)
-    # [0] the stack-overflow flag, [1] the next ray to hand out
-    err = torch.zeros(2, dtype=torch.int32, device=dev)
+    flag = _build.overflow_flag("mcpt_fused_bounce", dev, cap)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)  # fetch_next's
     _build.launch(
         "mcpt_fused_bounce", dev, cms.wnodes.data_ptr(), cms.tri16.data_ptr(),
         cms.live.data_ptr(), cms.matt.data_ptr(), cms.lit.data_ptr(),
@@ -388,13 +390,9 @@ def _fused_bounce_cuda(cms: ClusterMegaScene, state, rid, seed, depth,
         _f32(t_min), _f32(cms.total_light_area), _f32(clamp),
         int(seed) & _M32, int(depth), int(max_depth), int(bool(rr)),
         int(rr_start), int(bool(nee) and cms.n_lights > 0), int(bool(mis)),
-        state.data_ptr(), rid.data_ptr(), segs.data_ptr(), n, err.data_ptr())
-    with span("mcpt.wait.k2_flag"):
-        overflow = int(err[0].item())
-    if overflow != 0:
-        raise RuntimeError(f"fused bounce: traversal stack overflow (> {cap}"
-                           " entries); collapse_wide should have rejected "
-                           "this tree")
+        state.data_ptr(), rid.data_ptr(), segs.data_ptr(), n,
+        flag.data_ptr(), next_ray.data_ptr())
+    _build.check_overflow("mcpt_fused_bounce", flag, cap)
     return segs
 
 
@@ -837,6 +835,7 @@ def reorder(state, rid, order, keep: int, segs_total):
     return _reorder_reference(*args)
 
 
+@_build.overflow_checked_once()
 def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
                 rr_start=3, nee=False, mis=False, clamp=0.0, t_min=1e-4,
                 compact=None, key_mode="auto", live=None, perm=None,
@@ -850,7 +849,12 @@ def _run_hybrid(cms, cam, width, height, spp, seed, max_depth=8, rr=False,
     ``.roulette``, ``.sort``, ``.reduce``), and each bounce counts the
     lanes kernel 2 is launched over (``mcpt.count.k2_lanes``, the pool's
     rows × 128); ``live`` (a list) receives the live share of the pool
-    after each bounce but the last (the pilot's measurement)."""
+    after each bounce but the last (the pilot's measurement).
+
+    The whole step runs in ``_build.overflow_checked_once``: the bounces
+    share one stack-overflow flag, read once after the reduce is queued,
+    so the host queues each roulette, sort and next bounce while the last
+    bounce runs, and an overflow raises from this call."""
     key_mode = resolve_key_mode(key_mode, compact)
     dev = cms.wnodes.device
     n_px = width * height if perm is None else perm.numel()

@@ -16,9 +16,10 @@ of the hybrid engine, one stack per ray, run on the active rays only), with
 ``mcpt_torch/csrc/traverse.cu`` (its closest hit writes the ``Hit`` itself);
 and the dispatch through ``_build.use_kernel``: CPU tensors run the plain
 version, CUDA tensors launch the kernel, anything else raises.  Nothing
-falls back.  The
-kernel's stack-overflow flag is read back after each launch, or once at the
-end of an ``overflow_checked_once`` block (the wavefront's bounce loops).
+falls back.  The kernel's stack-overflow flag is read back after each
+launch, or once at the end of a ``_build.overflow_checked_once`` block (the
+wavefront's bounce loops): the block lives in the launch seam,
+``kernels/_build.py``, which kernel 2's flag goes through too.
 
 Two TPU workarounds stay behind: the 4096-row segment loop (scoped VMEM)
 and the 2e38 origin poison of inactive lanes (a block walks the union of
@@ -27,62 +28,16 @@ its lanes' nodes).  Here an inactive ray simply exits.
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 
 from mcpt_torch.kernels import _build
 from mcpt_torch.kernels import cluster_megakernel as cmk
-from mcpt_torch.trace import span, spanned
+from mcpt_torch.trace import spanned
 from mcpt_torch.types import Hit
 
 _MISS = 3.0e38  # t of a miss in the raw outputs (the kernels' kMiss)
-
-# inside overflow_checked_once(): {device: (flag, stack entries)}, the one
-# device int each launch ORs its stack-overflow flag into
-_DEFERRED: dict | None = None
-
-
-@contextlib.contextmanager
-def overflow_checked_once():
-    """Inside this block the launches set one shared stack-overflow flag a
-    device instead of each reading its own back, and the block's end reads
-    it once and raises on an overflow: the host never waits on a walk in
-    between, so it can queue the work around the walks.  ``trace`` and
-    ``trace_compacted`` wrap their bounce loops in it (16 reads a wavefront
-    step become one).  Outside it every launch reads its flag back and
-    raises at once.  A nested block leaves the reading to the outer one."""
-    global _DEFERRED
-    if _DEFERRED is not None:
-        yield
-        return
-    _DEFERRED = {}
-    try:
-        yield
-        flags = _DEFERRED
-    finally:
-        _DEFERRED = None
-    for err, cap in flags.values():
-        _raise_on_overflow(err, cap)
-
-
-def _raise_on_overflow(err: torch.Tensor, cap: int) -> None:
-    with span("mcpt.wait.k4_flag"):
-        overflow = int(err.item())
-    if overflow != 0:
-        raise RuntimeError(f"traverse: stack overflow (> {cap} entries); "
-                           "collapse_wide should have rejected this tree")
-
-
-def _overflow_flag(dev, cap: int) -> torch.Tensor:
-    """The flag a launch sets on a stack overflow: the open
-    ``overflow_checked_once`` block's for ``dev``, else a fresh one."""
-    if _DEFERRED is None:
-        return torch.zeros(1, dtype=torch.int32, device=dev)
-    if dev not in _DEFERRED:
-        _DEFERRED[dev] = (torch.zeros(1, dtype=torch.int32, device=dev), cap)
-    return _DEFERRED[dev][0]
 
 
 def traverse_reference(cl, origin, direction, active, limit, any_hit: bool,
@@ -123,8 +78,8 @@ def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
     hit → (R,) bool, ``traverse_reference``'s; closest hit → ``types.Hit``,
     ``intersect_clusters``'s (``limit`` may be None: no limit).  Raises on
     a refused launch and on the kernel's stack-overflow flag: read back at
-    once (the call then synchronises), or inside ``overflow_checked_once``
-    at the block's end."""
+    once (the call then synchronises), or inside
+    ``_build.overflow_checked_once`` at the block's end."""
     r = origin.shape[0]
     dev = origin.device
     _check("origin", origin, torch.float32, (r, 3))
@@ -139,8 +94,7 @@ def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
             raise ValueError(f"tensors on {t.device} and {dev}")
     cap = cmk._check_walk_tables(cl, dev)
     _check("tri_map", cl.tri_map, torch.int32, (cl.tri16.shape[0],))
-    deferred = _DEFERRED is not None
-    err = _overflow_flag(dev, cap)
+    err = _build.overflow_flag("mcpt_traverse", dev, cap)
     if any_hit:
         occ = torch.empty((r,), dtype=torch.bool, device=dev)
         outs = (None, None, None, None, occ.data_ptr())
@@ -157,8 +111,7 @@ def _traverse_cuda(cl, origin, direction, active, limit, any_hit: bool,
         cl.leaf_size, cap, origin.data_ptr(), direction.data_ptr(),
         active.data_ptr(), None if limit is None else limit.data_ptr(),
         float(t_min), int(any_hit), *outs, r, err.data_ptr())
-    if not deferred:
-        _raise_on_overflow(err, cap)
+    _build.check_overflow("mcpt_traverse", err, cap)
     return occ if any_hit else hit
 
 

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from mcpt_torch import rng
-from mcpt_torch.kernels import traverse_kernel
+from mcpt_torch.kernels import _build
 from mcpt_torch.render import camera as camera_mod
 from mcpt_torch.render import shade as shade_mod
 from mcpt_torch.render import traverse
@@ -188,7 +188,7 @@ def trace(scene, lights, pool: RayPool, key: rng.Key, opts: RenderOptions,
         raise ValueError(f"unknown loop mode {opts.loop!r}")
 
     # the cluster kernel's overflow flag is read once, after the loop
-    with traverse_kernel.overflow_checked_once():
+    with _build.overflow_checked_once():
         for depth in range(opts.max_depth):
             if opts.loop == "while" and not bool(pool.alive.any()):
                 break
@@ -285,7 +285,7 @@ def trace_compacted(scene, lights, pool: RayPool, key: rng.Key,
     prev_pdf = torch.zeros((r0,), dtype=torch.float32, device=dev)
 
     # the cluster kernel's overflow flag is read once, after the loop
-    with traverse_kernel.overflow_checked_once():
+    with _build.overflow_checked_once():
         for depth in range(opts.max_depth):
             kn_, ks_, kc_ = _bounce_keys(key, depth)
             hit = traverse.intersect_scene(

@@ -154,28 +154,30 @@ def test_plain_versions_never_count_launches(boxfield60):
 
 
 def test_overflow_checked_once_reads_the_flag_at_its_end():
-    """Inside ``overflow_checked_once`` every launch on a device shares one
-    flag, read when the outermost block ends (a set flag raises there);
-    outside it each launch gets a fresh flag; the state resets after a
-    raise in the block."""
+    """Inside the seam's ``overflow_checked_once`` every launch of a kernel
+    on a device shares one flag, read when the outermost block ends (a set
+    flag raises there); outside it each launch gets a fresh flag; the state
+    resets after a raise in the block."""
     dev = torch.device("cpu")
-    assert tk._DEFERRED is None
-    assert tk._overflow_flag(dev, 50) is not tk._overflow_flag(dev, 50)
-    with tk.overflow_checked_once():
-        flag = tk._overflow_flag(dev, 50)
-        assert tk._overflow_flag(dev, 50) is flag
-    assert tk._DEFERRED is None
+    k4 = "mcpt_traverse"
+    assert _build._DEFERRED is None
+    assert (_build.overflow_flag(k4, dev, 50)
+            is not _build.overflow_flag(k4, dev, 50))
+    with _build.overflow_checked_once():
+        flag = _build.overflow_flag(k4, dev, 50)
+        assert _build.overflow_flag(k4, dev, 50) is flag
+    assert _build._DEFERRED is None
     with pytest.raises(RuntimeError, match=r"stack overflow \(> 50"):
-        with tk.overflow_checked_once():
-            with tk.overflow_checked_once():  # nested: the outer one reads
-                tk._overflow_flag(dev, 50).fill_(1)
-            assert tk._DEFERRED is not None
-    assert tk._DEFERRED is None
+        with _build.overflow_checked_once():
+            with _build.overflow_checked_once():  # nested: the outer reads
+                _build.overflow_flag(k4, dev, 50).fill_(1)
+            assert _build._DEFERRED is not None
+    assert _build._DEFERRED is None
     with pytest.raises(KeyError):
-        with tk.overflow_checked_once():
-            tk._overflow_flag(dev, 50).fill_(1)
+        with _build.overflow_checked_once():
+            _build.overflow_flag(k4, dev, 50).fill_(1)
             raise KeyError("the body's own error wins")
-    assert tk._DEFERRED is None
+    assert _build._DEFERRED is None
 
 
 @pytest.mark.parametrize("schedule", ["regen", "batch"])

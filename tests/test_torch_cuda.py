@@ -316,6 +316,23 @@ def test_fused_bounce_stack_overflow_raises(cuda):
         cmk.fused_bounce(bad, state.clone(), rid, 0, 0)
 
 
+def test_render_hybrid_stack_overflow_raises_from_the_call(cuda):
+    """The cyclic table above through ``render_hybrid``: kernel 2's flag is
+    read once, at the step's end, so every bounce runs; the call raises
+    "stack overflow" and leaves no deferred block open; a healthy render
+    after it runs clean."""
+    cmk, cms, cam, _, _ = _hybrid_setup(cuda)
+    bad = _cyclic_clusters(cms, cuda)
+    before = _build.LAUNCHES["mcpt_fused_bounce"]
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        cmk.render_hybrid(bad, cam, 32, 24, spp=2, seed=4, max_depth=4)
+    assert _build.LAUNCHES["mcpt_fused_bounce"] == before + 4
+    assert _build._DEFERRED is None
+    rad, segs = cmk.render_hybrid(cms, cam, 32, 24, spp=2, seed=4,
+                                  max_depth=4)
+    assert bool(torch.isfinite(rad).all()) and math.isfinite(float(segs))
+
+
 def test_fused_bounce_wrapper_refusals(cuda):
     cmk, cms, _, state, rid = _hybrid_setup(cuda)
     with pytest.raises(ValueError, match="float32"):
@@ -854,7 +871,7 @@ def test_traverse_stack_overflow_raises(cuda):
                     opts)
     # every bounce ran: no early read
     assert _build.LAUNCHES["mcpt_traverse"] == before + 2 * 3
-    assert tk._DEFERRED is None
+    assert _build._DEFERRED is None
     out = integ.trace(scene, lights, pool, rng.key(2), opts)
     assert bool(torch.isfinite(out.radiance).all())
 
@@ -1005,9 +1022,10 @@ def _profiled_on_card(fn):
 def test_engine_spans_on_the_card(cuda, engine):
     """Each engine on the card under the profiler: the bits it gives
     unprofiled; its launch, reduce and wait spans (one wait a flag read:
-    kernel 2's each bounce, kernel 3's each step, kernel 4's once a bounce
-    loop), none echoed on the device timeline, and device time under the
-    span that launches the engine's kernel."""
+    kernel 2's once a step, kernel 3's each step, kernel 4's once a bounce
+    loop, each deferred read with a ``flags_deferred`` count of the
+    launches it covers), none echoed on the device timeline, and device
+    time under the span that launches the engine's kernel."""
     from mcpt_torch import rng
     from mcpt_torch.render import integrator as integ
 
@@ -1037,7 +1055,7 @@ def test_engine_spans_on_the_card(cuda, engine):
                 "mcpt.wavefront.closest_hit": 4, "mcpt.wavefront.any_hit": 4,
                 "mcpt.wavefront.shade": 4, "mcpt.wavefront.nee": 4,
                 "mcpt.wavefront.resort": 4, "mcpt.wavefront.resort_keys": 4,
-                "mcpt.wait.k4_flag": 1}
+                "mcpt.wait.k4_flag": 1, "mcpt.count.flags_deferred=8": 1}
         launcher = "mcpt.wavefront.closest_hit"
     elif engine == "cluster_mega":
         cmk, cms, cam, _, _ = _hybrid_setup(cuda)
@@ -1053,11 +1071,13 @@ def test_engine_spans_on_the_card(cuda, engine):
         def render():
             return cmk.render_hybrid(cms, cam, 32, 24, **kw)
         # the raygen kernel reads the camera on the card: no mcpt.wait.sf;
-        # each bounce counts its pool's lanes (one quantum, 32 rows of 128)
+        # each bounce counts its pool's lanes (one quantum, 32 rows of 128);
+        # kernel 2's flag is read once, after the reduce, for 4 launches
         want = {"mcpt.hybrid.raygen": 1,
-                "mcpt.hybrid.bounce": 4, "mcpt.wait.k2_flag": 4,
+                "mcpt.hybrid.bounce": 4, "mcpt.wait.k2_flag": 1,
                 "mcpt.hybrid.sort": 3, "mcpt.hybrid.reduce": 1,
-                "mcpt.count.k2_lanes=4096": 4}
+                "mcpt.count.k2_lanes=4096": 4,
+                "mcpt.count.flags_deferred=4": 1}
         launcher = "mcpt.hybrid.bounce"
     a, sa = render()
     (b, sb), counts, spans, echoes = _profiled_on_card(render)

@@ -1,13 +1,16 @@
 """The one seam between the kernels' Python side and the library
 (``mcpt_torch.kernels._build``): every public dispatcher's device rule
-(``use_kernel``) and the plain-on-card switch (``plain_versions``), on the
-CPU."""
+(``use_kernel``), the plain-on-card switch (``plain_versions``) and the
+deferred stack-overflow flags (``overflow_checked_once``), on the CPU."""
 
+import collections
 import dataclasses
+import re
 from types import SimpleNamespace
 
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mcpt_torch import rng
 from mcpt_torch import scenes as tscenes
@@ -110,3 +113,103 @@ def test_plain_versions_nests_and_restores_on_exceptions():
         with _build.plain_versions():
             _build.use_kernel("x", "meta")
     assert not _build._PLAIN
+
+
+K2, K4 = "mcpt_fused_bounce", "mcpt_traverse"
+
+
+def _flag_ranges(body):
+    """body() under a CPU profiler → (the RuntimeError it raised or None,
+    Counter of the mcpt. ranges it left)."""
+    raised = None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        try:
+            body()
+        except RuntimeError as e:
+            raised = e
+    return raised, collections.Counter(
+        e.name for e in prof.events() if e.name.startswith("mcpt."))
+
+
+def _two_kernels(set_k2: bool, set_k4: bool):
+    """Three kernel-2 launches and two kernel-4 launches on one device in
+    one block, with each kernel's flag set or not."""
+    dev = torch.device("cpu")
+    with _build.overflow_checked_once():
+        k2 = [_build.overflow_flag(K2, dev, 40) for _ in range(3)]
+        k4 = [_build.overflow_flag(K4, dev, 50) for _ in range(2)]
+        assert all(f is k2[0] for f in k2) and all(f is k4[0] for f in k4)
+        assert k2[0] is not k4[0]
+        for flag, symbol, cap in ((k2[0], K2, 40), (k4[0], K4, 50)):
+            _build.check_overflow(symbol, flag, cap)  # deferred: no read
+        k2[0].fill_(int(set_k2))
+        k4[0].fill_(int(set_k4))
+
+
+@pytest.mark.parametrize("k2_set,k4_set,message", [
+    (False, False, None),
+    (True, False, r"fused bounce: traversal stack overflow \(> 40 entries"),
+    (False, True, r"traverse: stack overflow \(> 50 entries"),
+    (True, True, r"fused bounce: traversal stack overflow \(> 40 entries"),
+])
+def test_overflow_checked_once_reads_each_kernels_flag(k2_set, k4_set,
+                                                        message):
+    """Two kernels' launches on one device in one block: a flag each,
+    shared by that kernel's launches and read once at the block's end under
+    its own wait span, after a ``flags_deferred`` count of the launches it
+    covers; a set flag raises its kernel's message (kernel 2's is read
+    first, as it was handed out first) and leaves no block open."""
+    raised, ranges = _flag_ranges(lambda: _two_kernels(k2_set, k4_set))
+    assert _build._DEFERRED is None
+    if message is None:
+        assert raised is None
+        assert ranges == {"mcpt.count.flags_deferred=3": 1,
+                          "mcpt.wait.k2_flag": 1,
+                          "mcpt.count.flags_deferred=2": 1,
+                          "mcpt.wait.k4_flag": 1}
+    else:
+        assert raised is not None and re.search(message, str(raised))
+        assert ranges["mcpt.wait.k2_flag"] == 1
+        assert ranges["mcpt.wait.k4_flag"] == int(not k2_set)
+
+
+@pytest.mark.parametrize("symbol,cap,message", [
+    (K2, 40, r"fused bounce: traversal stack overflow \(> 40"),
+    (K4, 50, r"traverse: stack overflow \(> 50"),
+])
+def test_overflow_flag_outside_a_block_is_read_at_once(symbol, cap,
+                                                       message):
+    """Outside a block each launch's flag is fresh and zero, and
+    ``check_overflow`` reads it at once under its kernel's span (no
+    ``flags_deferred`` count): clean, nothing; set, it raises there."""
+    dev = torch.device("cpu")
+    flag = _build.overflow_flag(symbol, dev, cap)
+    assert int(flag.item()) == 0
+    wait = _build.OVERFLOW_READS[symbol][0]
+    raised, ranges = _flag_ranges(
+        lambda: _build.check_overflow(symbol, flag, cap))
+    assert raised is None and ranges == {wait: 1}
+    flag.fill_(1)
+    raised, ranges = _flag_ranges(
+        lambda: _build.check_overflow(symbol, flag, cap))
+    assert re.search(message, str(raised)) and ranges == {wait: 1}
+    assert _build._DEFERRED is None
+
+
+def test_hybrid_step_runs_its_bounces_in_one_block(inputs, monkeypatch):
+    """``render_hybrid`` (and the pilot and the sharded hybrid, through
+    ``_run_hybrid``) runs every bounce inside one open
+    ``overflow_checked_once`` block, and leaves none open."""
+    seen = []
+    bounce = cmk.fused_bounce
+
+    def watched(*args, **kwargs):
+        seen.append(_build._DEFERRED)
+        return bounce(*args, **kwargs)
+
+    monkeypatch.setattr(cmk, "fused_bounce", watched)
+    cmk.render_hybrid(inputs.cms, inputs.cam, 4, 4, spp=1, seed=0,
+                      max_depth=3)
+    assert len(seen) == 3 and seen[0] is not None
+    assert all(block is seen[0] for block in seen)
+    assert _build._DEFERRED is None
